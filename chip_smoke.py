@@ -6,8 +6,9 @@
 Phases (any failure ends the run with a non-zero exit code and no result):
 
 0. the card's name and power limit (``nvidia-smi``);
-1. build the CUDA kernel ``jstsp19_torch/kernels/csrc/admm_fused.cu`` from
-   the checkout and print the build time and the compiler's report;
+1. build every CUDA kernel of ``jstsp19_torch/kernels/csrc/`` from the
+   checkout, one ``nvcc`` per source, all started together, and print
+   ``admm_fused``'s build time and the compiler's report;
 2. the kernel against its plain PyTorch version at the canonical shapes,
    B=8, Imax=25, with and without a support rank:
    max|ΔS| ≤ 2e-4·max|S| and a finite Y;
@@ -18,35 +19,97 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    rtol 2e-3, atol 2e-4; the batch mean of 'proposed' lies within 4
    combined standard errors of the same-ensemble reference in
    ``results/error_vs_snr.json``;
-4. both routes timed at B=256 with CUDA events (5 reps after a warm-up).
+4. both routes timed at B=256 with CUDA events (5 reps after a warm-up);
+5. the build time and compiler report of ``dict_correlation.cu`` and
+   ``soft_threshold.cu`` (built in phase 1);
+6. each of those kernels against its plain version at every shape the
+   second slice launches (B=256): ``dict_correlation`` for the errorVSnrf
+   ADMM (K 32x20), VAMP's adjoint (K Mrx16, A Mrx32, Mr in 4, 8, 12, 16)
+   and the canonical K 32x140, shared and per realization,
+   max|Δ| ≤ 1e-5·max|ref|; ``soft_threshold`` with a shared and a
+   per-matrix τ, max|Δ| ≤ 1e-6; both timed against their plain versions;
+7. the second slice, ``python -m jstsp19_torch run error_vs_nrf --n-mc 256
+   --no-plot``, in-process: exit 0; both kernels' launch counts rose by at
+   least 4 points x 2 proposed methods x Imax; every curve value finite and
+   in [0, 1]; each method at each Mr within 4 combined standard errors of
+   ``results/error_vs_nrf.json``; the wall time of each point;
+8. one errorVSnrf point (Mr=16, T=5, B=256, Imax=100) on the unfused route
+   with the kernels on and off: per-realization NMSE within rtol 2e-3,
+   atol 2e-4; both timed with CUDA events (5 reps after a warm-up).
 
-Then one JSON line with the kernel's launches, error and times, the card
+Then one JSON line with each kernel's launches, error and times, the card
 line, and last ``{"ok": true, "device": {...}}``.  Needs a CUDA device; there
 is no CPU fallback.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import pathlib
+import re
 import sys
-import time
+import tempfile
 
 import torch
 
 B_CHECK, IMAX_CHECK = 8, 25
 B_MAIN, IMAX_MAIN = 256, 100
+NRF_MR = (4, 8, 12, 16)
+NV_5DB = 10 ** (-0.5)
+TIMED_CALLS = 200
+
+
+def _stats(raw):
+    """(mean, sd, n) of per-realization errors."""
+    n = len(raw)
+    mean = sum(raw) / n
+    return mean, math.sqrt(sum((x - mean) ** 2 for x in raw) / (n - 1)), n
 
 
 def _reference_0db(root: pathlib.Path):
     """(mean, sd, n) of 'proposed' at 0 dB in the same-ensemble reference run."""
     d = json.loads((root / "results" / "error_vs_snr.json").read_text())
-    i = d["sweep"]["snr_db"].index(0.0)
-    raw = d["raw"]["proposed"][i]
-    n = len(raw)
-    mean = sum(raw) / n
-    sd = math.sqrt(sum((x - mean) ** 2 for x in raw) / (n - 1))
-    return mean, sd, n
+    return _stats(d["raw"]["proposed"][d["sweep"]["snr_db"].index(0.0)])
+
+
+def _sweep_reference(root: pathlib.Path, name: str):
+    """{method: [(mean, sd, n) per sweep point]} of a committed JAX sweep's raw errors."""
+    d = json.loads((root / "results" / f"{name}.json").read_text())
+    return {m: [_stats(raw) for raw in points] for m, points in d["raw"].items()}
+
+
+def _print_build(phase: str, name: str, seconds) -> None:
+    from jstsp19_torch.kernels.build import library_path
+
+    print(f"{phase} built {library_path(name).name} in {seconds[name]:.3f} s "
+          "(all kernels built together)")
+    log = library_path(name).with_suffix(".log")
+    if log.exists():
+        print(log.read_text().strip())
+
+
+def _per_call_ms(fn, calls: int = TIMED_CALLS) -> float:
+    """Milliseconds per call of ``fn()`` over ``calls`` back-to-back calls
+    between two CUDA events, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+class _Tee(io.StringIO):
+    """Keeps what is printed and passes it on to the real stdout."""
+
+    def write(self, s):
+        sys.__stdout__.write(s)
+        return super().write(s)
 
 
 def main() -> int:
@@ -58,9 +121,13 @@ def main() -> int:
     from jstsp19_torch.core import prng
     from jstsp19_torch.core.metrics import clamped_nmse
     from jstsp19_torch.harness.pipeline import PointConfig, fused_point_errors, proposed_problem
-    from jstsp19_torch.kernels import admm_fused
+    from jstsp19_torch import __main__ as cli
+    from jstsp19_torch.kernels import admm_fused, dictionary, softthresh
     from jstsp19_torch.kernels.admm_fused import fused_tracked_admm, fused_tracked_admm_plain
-    from jstsp19_torch.kernels.build import library_path
+    from jstsp19_torch.kernels.build import KERNELS, build_all
+    from jstsp19_torch.kernels.dictionary import dict_correlation, dict_correlation_plain
+    from jstsp19_torch.kernels.softthresh import fused_soft_threshold, fused_soft_threshold_plain
+    from jstsp19_torch.solvers.admm import proposed_admm
 
     root = pathlib.Path(__file__).resolve().parent
     dev = torch.device("cuda")
@@ -70,13 +137,11 @@ def main() -> int:
     card = card_line()
     print(f"[0] device: {kind}; nvidia-smi: {card}")
 
-    # ---- 1. build --------------------------------------------------------------
-    t0 = time.time()
-    admm_fused._library()
-    print(f"[1] built {library_path('admm_fused').name} in {time.time() - t0:.3f} s")
-    log = library_path("admm_fused").with_suffix(".log")
-    if log.exists():
-        print(log.read_text().strip())
+    # ---- 1. build: one nvcc per kernel source, all started together -------------
+    build_seconds = build_all(KERNELS)
+    for module in (admm_fused, dictionary, softthresh):
+        module._library()
+    _print_build("[1]", "admm_fused", build_seconds)
 
     # ---- 2. kernel against its plain version, B=8, Imax=25 ---------------------
     pc = PointConfig(methods=("proposed", "proposed_angles"), svt_method="fused")
@@ -154,7 +219,7 @@ def main() -> int:
         print(f"[4] route {route}: {B_MAIN / best:.1f} est/s at B={B_MAIN} (card: {card}); "
               f"NMSE batch means {[round(m, 4) for m in means]}")
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "fused_tracked_admm",
         "route": "cuda",
         "source": "jstsp19_torch/kernels/csrc/admm_fused.cu",
@@ -163,7 +228,138 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
-    }]}))
+    }]
+
+    # ---- 5. the second slice's kernels: build report -------------------------------
+    for name in ("dict_correlation", "soft_threshold"):
+        _print_build("[5]", name, build_seconds)
+
+    # ---- 6. each kernel against its plain version at the slice's shapes --------------
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def crandn(*shape):
+        return torch.randn(*shape, generator=g, device=dev, dtype=torch.complex64)
+
+    B = B_MAIN
+    dict_cases = [  # (what, A, K, B)
+        ("errorVSnrf ADMM", crandn(B, 32, 32), crandn(B, 32, 20), crandn(B, 16, 20)),
+        *((f"VAMP adjoint Mr={mr}", crandn(B, mr, 32), crandn(B, mr, 16), crandn(B, 16, 16))
+          for mr in NRF_MR),
+        ("canonical, shared A and B", crandn(32, 32), crandn(B, 32, 140), crandn(16, 140)),
+        ("canonical, per realization", crandn(B, 32, 32), crandn(B, 32, 140), crandn(B, 16, 140)),
+    ]
+    dict_err = 0.0
+    for what, A_, K_, B_ in dict_cases:
+        out_k = dict_correlation(A_, K_, B_)
+        ref = dict_correlation_plain(A_, K_, B_)
+        torch.cuda.synchronize()
+        err, scale = float((out_k - ref).abs().max()), float(ref.abs().max())
+        ok = err <= 1e-5 * scale
+        dict_err = max(dict_err, err)
+        print(f"[6] dict_correlation {what}: K {tuple(K_.shape)}, A {tuple(A_.shape)}, B {tuple(B_.shape)}: "
+              f"max|d|={err:.3e} <= 1e-5*max|ref|={1e-5 * scale:.3e}: {ok}")
+        if not ok:
+            raise SystemExit("[6] dict_correlation disagrees with its plain version")
+    v = crandn(B, 32, 16) * 0.3
+    tau_shared = 0.2
+    tau_per = torch.rand(B, 1, 1, generator=g, device=dev) * 0.4
+    soft_err = 0.0
+    for what, tau in (("shared tau", tau_shared), ("per-matrix tau", tau_per)):
+        out_k = fused_soft_threshold(v, tau)
+        ref = fused_soft_threshold_plain(v, tau)
+        torch.cuda.synchronize()
+        err = float((out_k - ref).abs().max())
+        soft_err = max(soft_err, err)
+        print(f"[6] soft_threshold {what}, v {tuple(v.shape)}: max|d|={err:.3e} <= 1e-6: {err <= 1e-6}")
+        if not err <= 1e-6:
+            raise SystemExit("[6] soft_threshold disagrees with its plain version")
+    _, A_, K_, B_ = dict_cases[0]
+    dict_ms = _per_call_ms(lambda: dict_correlation(A_, K_, B_))
+    dict_plain_ms = _per_call_ms(lambda: dict_correlation_plain(A_, K_, B_))
+    soft_ms = _per_call_ms(lambda: fused_soft_threshold(v, tau_per))
+    soft_plain_ms = _per_call_ms(lambda: fused_soft_threshold_plain(v, tau_per))
+    print(f"[6] per call, mean of {TIMED_CALLS}: dict_correlation {dict_ms:.4f} ms (plain {dict_plain_ms:.4f} ms) "
+          f"at K {tuple(K_.shape)}; soft_threshold {soft_ms:.4f} ms (plain {soft_plain_ms:.4f} ms) "
+          f"at v {tuple(v.shape)} (card: {card})")
+
+    # ---- 7. the second slice: the errorVSnrf sweep through the CLI ------------------
+    dict_correlation.launches = 0
+    fused_soft_threshold.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        tee = _Tee()
+        with contextlib.redirect_stdout(tee):
+            rc = cli.main(["run", "error_vs_nrf", "--n-mc", str(B_MAIN), "--no-plot", "--out", tmp])
+        torch.cuda.synchronize()
+        dict_launches, soft_launches = dict_correlation.launches, fused_soft_threshold.launches
+        if rc != 0:
+            raise SystemExit(f"[7] the CLI exited {rc}")
+        res = json.loads((pathlib.Path(tmp) / "error_vs_nrf.json").read_text())
+    need = len(NRF_MR) * 2 * IMAX_MAIN
+    print(f"[7] launches: dict_correlation {dict_launches}, soft_threshold {soft_launches} "
+          f"(need >= {need} each)")
+    if dict_launches < need or soft_launches < need:
+        raise SystemExit("[7] the slice did not go through both kernels")
+    times = dict(re.findall(r"Mr=(\d+): .* \[([0-9.]+) s\]", tee.getvalue()))
+    for mr in NRF_MR:
+        print(f"[7] point Mr={mr}: wall {float(times[str(mr)]):.3f} s at n_mc={B_MAIN} (card: {card})")
+    ref = _sweep_reference(root, "error_vs_nrf")
+    if res["sweep"]["Mr"] != [float(m) for m in NRF_MR] or set(res["curves"]) != set(ref):
+        raise SystemExit("[7] the JSON does not hold the JAX artifact's sweep and methods")
+    for m in sorted(ref):
+        for i, mr in enumerate(NRF_MR):
+            mean, sd, n = _stats(res["raw"][m][i])
+            r_mean, r_sd, r_n = ref[m][i]
+            se = math.sqrt(r_sd**2 / r_n + sd**2 / n)
+            val = res["curves"][m][i]
+            ok = math.isfinite(val) and 0.0 <= val <= 1.0 and abs(mean - r_mean) <= 4 * se
+            print(f"[7] {m} Mr={mr}: mean {mean:.6f} (sd {sd:.4f}, n {n}) vs JAX {r_mean:.6f} "
+                  f"(sd {r_sd:.4f}, n {r_n}): z {(mean - r_mean) / se:+.2f}, within 4 SE and in [0, 1]: {ok}")
+            if not ok:
+                raise SystemExit(f"[7] {m} at Mr={mr} outside the 4-sigma band or [0, 1]")
+
+    # ---- 8. one errorVSnrf point, unfused route, kernels on and off -------------------
+    pc8 = PointConfig(Mr=16, T=5, methods=("proposed",))
+    prob = proposed_problem(prng.realization_generators(0, 3, dev), pc8, NV_5DB, B_MAIN)
+    args = [prob[k] for k in ("subY", "Omega", "A", "B")]
+    hp = [prob[k] for k in ("tau_Y", "tau_S", "rho")]
+
+    def solve(use_kernels):
+        return proposed_admm(*args, IMAX_MAIN, *hp, use_kernels=use_kernels).S
+
+    e_on = clamped_nmse(solve(True), prob["Zbar"])
+    e_off = clamped_nmse(solve(False), prob["Zbar"])
+    ok = bool(torch.allclose(e_on, e_off, rtol=2e-3, atol=2e-4))
+    print(f"[8] Mr=16 point, B={B_MAIN}, Imax={IMAX_MAIN}: mean NMSE kernels on {float(e_on.mean()):.6f}, "
+          f"off {float(e_off.mean()):.6f}; max per-realization |dNMSE| = {float((e_on - e_off).abs().max()):.3e}; "
+          f"within rtol 2e-3, atol 2e-4: {ok}")
+    if not ok:
+        raise SystemExit("[8] kernels on and off disagree")
+    for label, flag in (("kernels on", True), ("kernels off", False), ("kernels on", True), ("kernels off", False)):
+        t, _ = cuda_event_times(lambda r: solve(flag), REPS)
+        best, median = min(t), sorted(t)[len(t) // 2]
+        print(f"[8] unfused solve, {label}: best {best * 1e3:.3f} ms, median {median * 1e3:.3f} ms, "
+              f"spread {(max(t) - best) * 1e3:.3f} ms over {REPS} reps (card: {card})")
+
+    kernels += [{
+        "name": "dict_correlation",
+        "route": "cuda",
+        "source": "jstsp19_torch/kernels/csrc/dict_correlation.cu",
+        "replaces": "jstsp19_tpu/kernels/dictionary.py:79",
+        "launches": dict_launches,
+        "max_abs_err": dict_err,
+        "ms": dict_ms,
+        "plain_ms": dict_plain_ms,
+    }, {
+        "name": "soft_threshold",
+        "route": "cuda",
+        "source": "jstsp19_torch/kernels/csrc/soft_threshold.cu",
+        "replaces": "jstsp19_tpu/kernels/softthresh.py:30",
+        "launches": soft_launches,
+        "max_abs_err": soft_err,
+        "ms": soft_ms,
+        "plain_ms": soft_plain_ms,
+    }]
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -8,11 +8,14 @@ mirrors the JAX package, which stays the reference:
   core/      configs, role-keyed torch.Generator streams, metrics, dtypes
   channel/   wideband frequency-selective mmWave channel generator
   frontend/  beamformers, 4-QAM, training frames, HBF measurement
-  ops/       Jacobi schedules, warm-started tracked SVT
-  solvers/   soft threshold, SVT, the proposed ADMM
+  ops/       Jacobi schedules, warm-started tracked SVT, the implicit
+             Kronecker dictionary operator
+  solvers/   soft threshold, SVT, the proposed ADMM, and the LS, MMV-OMP
+             and VAMP baselines
   kernels/   hand-written CUDA kernels (sm_90a) with their plain versions
-  harness/   the batched errorVSsnr pipeline
-  interop    numpy bridge from the JAX package's arrays
+  harness/   the batched pipeline, the sweep runner, the experiment
+             registry and artifacts (``python -m jstsp19_torch``)
+  interop    numpy bridge from the JAX package's arrays and artifacts
 
 Plain functions on tensors; a batch of realizations is a leading dimension.
 This package imports neither ``jax`` nor ``jstsp19_tpu``.

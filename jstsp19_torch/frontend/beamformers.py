@@ -1,12 +1,13 @@
 """Analog combiner factory (counterpart of ``jstsp19_tpu/frontend/beamformers.py``).
 
 The combiner families of ``createBeamformer.m:4-31`` as closed-form phase
-matrices; each returns an (N, N) complex matrix with unit-norm columns.
+matrices; each returns an (N, N) complex matrix with unit-norm columns, or a
+(*batch, N, N) stack of independent draws for the random families.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -17,9 +18,9 @@ _ZC_ROOT = 11  # Zadoff-Chu root, createBeamformer.m:16
 
 
 def _phase_matrix(omega_cols: torch.Tensor, N: int) -> torch.Tensor:
-    """``B[n, c] = exp(-j·n·omega_cols[c]) / sqrt(N)``."""
+    """``B[..., n, c] = exp(-j·n·omega_cols[..., c]) / sqrt(N)``."""
     n = torch.arange(N, dtype=REAL_DTYPE, device=omega_cols.device)[:, None]
-    return (torch.exp(-1j * n * omega_cols[None, :]) / math.sqrt(N * 1.0)).to(COMPLEX_DTYPE)
+    return (torch.exp(-1j * n * omega_cols[..., None, :]) / math.sqrt(N * 1.0)).to(COMPLEX_DTYPE)
 
 
 def _quantized(N: int, bits: int, device) -> torch.Tensor:
@@ -33,14 +34,21 @@ def _quantized(N: int, bits: int, device) -> torch.Tensor:
 
 
 def create_beamformer(
-    N: int, kind: str = "ZC", gen: Optional[torch.Generator] = None, device=None
+    N: int,
+    kind: str = "ZC",
+    gen: Optional[torch.Generator] = None,
+    device=None,
+    batch: Tuple[int, ...] = (),
 ) -> torch.Tensor:
     """Build an (N, N) analog combiner of the given family.
 
     kinds (``createBeamformer.m``): 'fft' and 'ps' (DFT phases), 'ZC'
     (Zadoff-Chu bank, root 11), 'quantized_4' / 'quantized' (4 / 6-bit
     phase grids), and the random 'rand' (QPSK entries) and 'rand_ps'
-    (32-level phase shifters), which draw from ``gen`` on its device.
+    (32-level phase shifters), which draw from ``gen`` on its device: one
+    independent (N, N) combiner per realization, (*batch, N, N), as the JAX
+    package draws one per realization key.  The deterministic kinds ignore
+    ``batch`` and return the one shared (N, N) matrix.
     """
     if kind in ("rand", "rand_ps"):
         if gen is None:
@@ -59,9 +67,9 @@ def create_beamformer(
         return _quantized(N, 6, device)
     if kind == "rand":
         alphabet = torch.tensor([1.0, -1.0, 1.0j, -1.0j], dtype=COMPLEX_DTYPE, device=device)
-        idx = torch.randint(0, 4, (N, N), generator=gen, device=device)
+        idx = torch.randint(0, 4, (*batch, N, N), generator=gen, device=device)
         return alphabet[idx] / math.sqrt(N * 1.0)
     if kind == "rand_ps":
-        g = torch.randint(1, _RAND_PS_GRID + 1, (N,), generator=gen, device=device)
+        g = torch.randint(1, _RAND_PS_GRID + 1, (*batch, N), generator=gen, device=device)
         return _phase_matrix(2.0 * math.pi * g.to(REAL_DTYPE) / _RAND_PS_GRID, N)
     raise ValueError(f"unknown beamformer kind {kind!r}")

@@ -6,6 +6,8 @@ hyper-parameters → proposed ADMM → clamped NMSE (``plot_errorVSsnr.m:48-167`
 Where the JAX package vmaps one realization, every function here takes
 ``gens`` (one ``torch.Generator`` per role, :func:`core.prng.realization_generators`)
 and a ``batch`` count and works on the whole batch on the generators' device.
+The conventional-HBF baselines (LS, VAMP, MMV-OMP) run on the same
+realizations under the T_hbf training budget (``plot_errorVSsnr.m:73-121``).
 """
 from __future__ import annotations
 
@@ -18,22 +20,31 @@ from jstsp19_torch.channel import wideband_mmwave_channel
 from jstsp19_torch.core import prng
 from jstsp19_torch.core.config import matlab_round, use_full_fp32
 from jstsp19_torch.core.metrics import clamped_nmse, nmse
-from jstsp19_torch.frontend import awgn, create_beamformer, proposed_hbf, qam4_training_frames
+from jstsp19_torch.frontend import awgn, create_beamformer, hbf, proposed_hbf, qam4_training_frames
 from jstsp19_torch.solvers.admm import (
     admm_hyperparams,
     proposed_admm,
     proposed_admm_angles,
     support_rank_from_order,
 )
+from jstsp19_torch.solvers.lsq import ls_estimate, pinv
+from jstsp19_torch.solvers.omp import omp_mmv
+from jstsp19_torch.solvers.vamp import vamp_mmwave
 
-PORTED_METHODS = ("proposed", "proposed_angles")
+PORTED_METHODS = ("ls", "vamp", "omp_mmv", "proposed", "proposed_angles")
+# methods of the JAX package still to port, with their ROADMAP.md item
+UNPORTED_METHODS = {
+    "omp_td": "Queue 1, item 4: 'solvers/omp.py::omp_td'",
+    "svt": "Queue 1, item 4: 'solvers/lowrank.py::mc_svt'",
+    "tssr": "Queue 1, item 4: 'solvers/lowrank.py::mc_svt'",
+}
 
 
 @dataclasses.dataclass(frozen=True)
 class PointConfig:
     """Static configuration of one sweep point; defaults are the canonical
-    ``plot_errorVSsnr.m:8-25`` block (fields as in the JAX package, less
-    those of the estimators not ported yet, whose methods raise).
+    ``plot_errorVSsnr.m:8-25`` block, fields and defaults as in the JAX
+    package (whose field notes give the reasons).
 
     ``svt_method`` is 'eigh', 'tracked' or 'fused'; 'fused' is the JAX
     package's 'pallas' and runs batch-level through
@@ -52,12 +63,17 @@ class PointConfig:
     n_rays: int = 3
     T: int = 35
     Imax: int = 100
+    num_nonzero: int = 100
     beamformer: str = "ZC"
     methods: Tuple[str, ...] = PORTED_METHODS
     admm_mode: str = "approximate"
     svt_method: str = "eigh"
     track_rounds: int = 1
     track_precision: str = "default"
+    vamp_nit: int = 100
+    vamp_true_noise: bool = False  # the reference passes sigma=1 (plot_errorVSsnr.m:100)
+    vamp_damp: float = 0.85  # vamp.m:12
+    vamp_normal_eq: bool = True  # y = vec(Y·Bᴴ), Phi = kron((B·Bᴴ).', A) (plot_errorVSsnr.m:79-80)
     rho_scale: float = 1.0
     channel_quirks: bool = False
 
@@ -71,12 +87,11 @@ class PointConfig:
 
 
 def _check_methods(pc: PointConfig) -> None:
-    missing = [m for m in pc.methods if m not in PORTED_METHODS]
-    if missing:
-        raise NotImplementedError(
-            f"methods {missing} are not ported yet (ROADMAP.md Queue 1, items 4-5: "
-            "the other errorVSsnr families and the harness runner)"
-        )
+    for m in pc.methods:
+        if m in UNPORTED_METHODS:
+            raise NotImplementedError(f"method {m!r} is not ported yet (ROADMAP.md {UNPORTED_METHODS[m]})")
+        if m not in PORTED_METHODS:
+            raise ValueError(f"unknown method {m!r}")
 
 
 def _device(gens: Mapping[int, torch.Generator]) -> torch.device:
@@ -101,18 +116,26 @@ def _system_realization(gens, pc: PointConfig, noise_var, batch: int):
     )
     Psi = qam4_training_frames(gens[prng.ROLE_TRAINING], pc.Nt, pc.T_prop, pc.L, batch=(batch,))
     N = awgn(gens[prng.ROLE_NOISE], pc.Nr, pc.T_prop, noise_var, batch=(batch,))
-    W = create_beamformer(pc.Nr, pc.beamformer, gen=gens[prng.ROLE_BEAMFORMER], device=_device(gens))
+    W = create_beamformer(
+        pc.Nr, pc.beamformer, gen=gens[prng.ROLE_BEAMFORMER], device=_device(gens), batch=(batch,)
+    )
     return ch, Psi, N, W
 
 
-def _proposed_frontend(gens, pc: PointConfig, noise_var, batch: int):
+def _per_realization(A: torch.Tensor, batch: int) -> torch.Tensor:
+    """A dictionary built from the one shared combiner, as (batch, ...)."""
+    return A.expand(batch, *A.shape[-2:]).contiguous() if A.dim() == 2 else A
+
+
+def _proposed_frontend(gens, pc: PointConfig, noise_var, batch: int, sys_real=None):
     """System realization → random-spatial-sampling observation →
-    dictionaries → hyper-parameters (``plot_errorVSsnr.m:125-130``)."""
+    dictionaries → hyper-parameters (``plot_errorVSsnr.m:125-130``).
+    ``sys_real``: an already drawn ``(ch, Psi, N, W)``."""
     use_full_fp32()
-    ch, Psi, N, W = _system_realization(gens, pc, noise_var, batch)
+    ch, Psi, N, W = sys_real or _system_realization(gens, pc, noise_var, batch)
     obs = proposed_hbf(gens[prng.ROLE_MASK], ch.H, N, Psi, pc.Mr_e, pc.Mr, W)
     A_p, B_p = _dictionaries(ch, obs.W_e, Psi)
-    A_p = A_p.expand(batch, *A_p.shape[-2:]).contiguous()
+    A_p = _per_realization(A_p, batch)
     tau_Y, tau_S, rho = admm_hyperparams(obs.Y, ch.Zbar)
     return ch, obs, A_p, B_p, tau_Y, tau_S, rho * pc.rho_scale
 
@@ -130,28 +153,58 @@ def realization_errors(
 
     Returns {method: (batch,) clamped spectral NMSE vs Zbar}; ``clamp=False``
     gives the raw NMSE and ``with_zbar`` adds the true beamspace channel.
-    Only 'proposed' and 'proposed_angles' are ported.
+    'omp_td', 'svt' and 'tssr' are not ported yet and raise.
     """
     _check_methods(pc)
     if pc.svt_method == "fused":
         raise ValueError(
             "svt_method='fused' runs batch-level; use harness.pipeline.fused_point_errors"
         )
+    use_full_fp32()
     metric = clamped_nmse if clamp else nmse
-    ch, obs, A_p, B_p, tau_Y, tau_S, rho = _proposed_frontend(gens, pc, noise_var, batch)
-    kw = dict(
-        mode=pc.admm_mode, svt_method=pc.svt_method, track_rounds=pc.track_rounds,
-        track_precision=pc.track_precision,
-    )
     out: Dict[str, torch.Tensor] = {}
-    if "proposed" in pc.methods:
-        res = proposed_admm(obs.Y, obs.Omega, A_p, B_p, pc.Imax, tau_Y, tau_S, rho, **kw)
-        out["proposed"] = metric(res.S, ch.Zbar)
-    if "proposed_angles" in pc.methods:
-        res_a = proposed_admm_angles(
-            obs.Y, obs.Omega, _oracle_order(ch.Zbar), A_p, B_p, pc.Imax, tau_Y, tau_S, rho, **kw
+    ch, Psi, N, W = _system_realization(gens, pc, noise_var, batch)
+
+    if {"ls", "vamp", "omp_mmv"} & set(pc.methods):
+        # conventional branch under the fair training budget T_hbf
+        # (plot_errorVSsnr.m:73-78)
+        Th = pc.T_hbf
+        Y_c, W_c = hbf(ch.H, N[..., :Th], Psi[..., :Th], pc.Nr, W)
+        A_c, B_c = _dictionaries(ch, W_c, Psi[..., :Th])
+        A_c = _per_realization(A_c, batch)
+        if "ls" in pc.methods:
+            out["ls"] = metric(ls_estimate(Y_c, A_c, B_c), ch.Zbar)
+        if "vamp" in pc.methods:
+            nv = noise_var if pc.vamp_true_noise else 1.0
+            if pc.vamp_normal_eq:
+                # vec(Y·Bᴴ) = vec(A·X·(B·Bᴴ)): the reference's Phi in matrix form
+                S_vamp = vamp_mmwave(Y_c @ B_c.mH, A_c, B_c @ B_c.mH, nv, pc.num_nonzero,
+                                     nit=pc.vamp_nit, damp=pc.vamp_damp)
+            else:
+                S_vamp = vamp_mmwave(Y_c, A_c, B_c, nv, pc.num_nonzero, nit=pc.vamp_nit,
+                                     damp=pc.vamp_damp)
+            out["vamp"] = metric(S_vamp, ch.Zbar)
+        if "omp_mmv" in pc.methods:
+            # spx joint OMP on Y·pinv(B) (plot_errorVSsnr.m:116-118); numOfnz
+            # > Gr saturates at the atom count, so MMV-OMP equals LS there
+            S_omp = omp_mmv(A_c, Y_c @ pinv(B_c), min(pc.num_nonzero, pc.Gr)).x
+            out["omp_mmv"] = metric(S_omp, ch.Zbar)
+
+    if {"proposed", "proposed_angles"} & set(pc.methods):
+        _, obs, A_p, B_p, tau_Y, tau_S, rho = _proposed_frontend(
+            gens, pc, noise_var, batch, sys_real=(ch, Psi, N, W))
+        kw = dict(
+            mode=pc.admm_mode, svt_method=pc.svt_method, track_rounds=pc.track_rounds,
+            track_precision=pc.track_precision,
         )
-        out["proposed_angles"] = metric(res_a.S, ch.Zbar)
+        if "proposed" in pc.methods:
+            res = proposed_admm(obs.Y, obs.Omega, A_p, B_p, pc.Imax, tau_Y, tau_S, rho, **kw)
+            out["proposed"] = metric(res.S, ch.Zbar)
+        if "proposed_angles" in pc.methods:
+            res_a = proposed_admm_angles(
+                obs.Y, obs.Omega, _oracle_order(ch.Zbar), A_p, B_p, pc.Imax, tau_Y, tau_S, rho, **kw
+            )
+            out["proposed_angles"] = metric(res_a.S, ch.Zbar)
     if with_zbar:
         out["Zbar"] = ch.Zbar
     return out

@@ -1,0 +1,170 @@
+"""Sweep runner (counterpart of ``jstsp19_tpu/harness/runner.py``).
+
+The reference parallelizes with a MATLAB ``parfor`` over realizations
+(``plot_errorVSsnr_approx.m:41``); here one sweep point is one batch of
+``n_mc`` realizations on one device, and the curve value is the batch mean
+(``plot_errorVSsnr.m:170-178``).  The JAX package's mesh and multi-process
+branches and its orbax checkpoint backend are not ported (ROADMAP.md Queue 1,
+items 5-6).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from jstsp19_torch.core import prng
+from jstsp19_torch.harness.pipeline import PointConfig, fused_point_errors, realization_errors
+
+FUSED_METHODS = ("proposed", "proposed_angles")
+
+
+@dataclasses.dataclass
+class SweepResult:
+    name: str
+    sweep_name: str
+    sweep_values: List
+    curves: Dict[str, List[float]]  # method -> mean metric per sweep point
+    n_mc: int
+    seconds: float
+    extras: Dict = dataclasses.field(default_factory=dict)
+
+    def to_json(self) -> str:
+        return json.dumps(
+            {
+                "experiment": self.name,
+                "sweep": {self.sweep_name: list(map(float, self.sweep_values))},
+                "n_mc": self.n_mc,
+                "curves": {k: list(map(float, v)) for k, v in self.curves.items()},
+                "seconds": self.seconds,
+                **{k: v for k, v in self.extras.items() if _jsonable(v)},
+            },
+            indent=2,
+        )
+
+
+def _jsonable(v) -> bool:
+    try:
+        json.dumps(v)
+        return True
+    except TypeError:
+        return False
+
+
+def run_point(
+    pc: PointConfig,
+    noise_var: float,
+    n_mc: int,
+    seed: int = 0,
+    sweep_index: int = 0,
+    device="cpu",
+) -> Dict[str, np.ndarray]:
+    """Evaluate one sweep point over ``n_mc`` realizations on ``device``
+    (the CPU unless named); returns {method: (n_mc,) NMSE}.
+
+    ``svt_method='fused'`` (the JAX package's 'pallas') solves the proposed
+    methods on the fused kernel and the others on 'tracked'; it falls back
+    to 'tracked' for all of them when N > M (``Mr_e > T·Nt``), for which
+    the fused kernel has no branch.  Every call draws from fresh generators
+    of (seed, sweep_index), so both halves see the same realizations.
+    """
+    device = torch.device(device)
+
+    def gens():
+        return prng.realization_generators(seed, sweep_index, device)
+
+    if pc.svt_method == "fused" and pc.Mr_e > pc.T * pc.Nt:
+        pc = dataclasses.replace(pc, svt_method="tracked")
+    if pc.svt_method == "fused":
+        out = {}
+        fused = tuple(m for m in FUSED_METHODS if m in pc.methods)
+        if fused:
+            out.update(fused_point_errors(gens(), dataclasses.replace(pc, methods=fused), noise_var, n_mc))
+        rest = tuple(m for m in pc.methods if m not in FUSED_METHODS)
+        if rest:
+            pcr = dataclasses.replace(pc, methods=rest, svt_method="tracked")
+            out.update(realization_errors(gens(), pcr, noise_var, n_mc))
+    else:
+        out = realization_errors(gens(), pc, noise_var, n_mc)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+# process-wide checkpoint default, so the CLI can enable sweep resume
+# without threading kwargs through every experiment recipe
+_DEFAULT_CHECKPOINT = {"dir": None}
+
+
+def _check_backend(backend: str) -> None:
+    if backend == "orbax":
+        raise NotImplementedError(
+            "the orbax checkpoint backend is not ported yet (ROADMAP.md Queue 1, item 5)")
+    if backend != "json":
+        raise ValueError(f"unknown checkpoint backend {backend!r}")
+
+
+def set_default_checkpoint(directory: Optional[str], backend: str = "json") -> None:
+    """Set the checkpoint directory used by every later :func:`run_sweep`
+    call that does not pass its own; only the json backend is ported."""
+    _check_backend(backend)
+    _DEFAULT_CHECKPOINT["dir"] = directory
+
+
+def run_sweep(
+    name: str,
+    sweep_name: str,
+    sweep_values: Sequence,
+    point_fn: Callable[[object], PointConfig],
+    noise_fn: Callable[[object], float],
+    n_mc: int = 8,
+    seed: int = 0,
+    device="cpu",
+    verbose: bool = True,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_backend: str = "json",
+) -> SweepResult:
+    """Run a full sweep: for each sweep value build the PointConfig, run the
+    Monte-Carlo batch and average each method's metric.
+
+    ``checkpoint_dir``: per-point means are journaled there as json and
+    completed points are skipped on a re-run.  The verbose line of each
+    point ends with its wall time in brackets.  ``extras['raw']`` holds the
+    per-realization errors when every point ran fresh.
+    """
+    _check_backend(checkpoint_backend)
+    checkpoint_dir = checkpoint_dir or _DEFAULT_CHECKPOINT["dir"]
+    t0 = time.time()
+    curves: Dict[str, List[float]] = {}
+    raw: Dict[str, List[List[float]]] = {}
+    for i, val in enumerate(sweep_values):
+        t_point = time.time()
+        ckpt = os.path.join(checkpoint_dir, f"{name}.{sweep_name}.{i}.json") if checkpoint_dir else None
+        point = None
+        if ckpt and os.path.exists(ckpt):
+            with open(ckpt) as f:
+                point = json.load(f)
+        if point is None:
+            out = run_point(point_fn(val), noise_fn(val), n_mc, seed=seed, sweep_index=i, device=device)
+            point = {m: float(np.mean(errs)) for m, errs in out.items()}
+            for m, errs in out.items():
+                raw.setdefault(m, []).append(np.asarray(errs).tolist())
+            if ckpt:
+                os.makedirs(checkpoint_dir, exist_ok=True)
+                with open(ckpt, "w") as f:
+                    json.dump(point, f)
+        for m, mean_err in point.items():
+            curves.setdefault(m, []).append(mean_err)
+        if verbose:
+            msg = ", ".join(f"{m}={point[m]:.4g}" for m in sorted(point))
+            print(f"[{name}] {sweep_name}={val}: {msg} [{time.time() - t_point:.3f} s]", flush=True)
+    res = SweepResult(
+        name=name, sweep_name=sweep_name, sweep_values=list(sweep_values), curves=curves,
+        n_mc=n_mc, seconds=time.time() - t0,
+    )
+    if raw and all(len(v) == len(sweep_values) for v in raw.values()):
+        res.extras["raw"] = raw
+    return res

@@ -3,20 +3,24 @@
 The JAX package's functions return arrays that ``numpy.asarray`` turns into
 numpy; these helpers turn such numpy inputs into port tensors on a given
 device (and port tensors back into numpy), so both packages can compute on
-the same inputs: the ``proposed_problem`` dict, a ``Channel`` and an
-``AdmmState``.
+the same inputs: the ``proposed_problem`` dict, a ``Channel``, an ``AdmmState``
+and a batch of conventional-branch inputs; and a JAX sweep's JSON artifact
+becomes the port's ``SweepResult``.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import json
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
 
 from jstsp19_torch.channel.widemmwave import Channel
+from jstsp19_torch.harness.runner import SweepResult
 from jstsp19_torch.solvers.admm import AdmmState
 
 PROBLEM_KEYS = ("subY", "Omega", "A", "B", "tau_Y", "tau_S", "rho", "Zbar", "rank")
+CONVENTIONAL_KEYS = ("Y_c", "A_c", "B_c", "Zbar")
 
 
 def to_torch(x, device=None) -> torch.Tensor:
@@ -73,3 +77,23 @@ def state_to_numpy(state: AdmmState) -> Dict[str, object]:
     out["U"] = None if state.U is None else to_numpy(state.U)
     out["it"] = state.it
     return out
+
+
+def conventional_to_torch(batch: Mapping[str, np.ndarray], device=None) -> Dict[str, torch.Tensor]:
+    """A batch of conventional-branch inputs: the HBF observation Y_c, the
+    dictionaries A_c and B_c under the T_hbf budget, and the true Zbar."""
+    return {k: to_torch(batch[k], device) for k in CONVENTIONAL_KEYS}
+
+
+def sweep_result_from_json(doc: Union[str, Mapping]) -> SweepResult:
+    """A sweep artifact written by either package's ``save_result`` (its
+    JSON text or the parsed dict) as the port's ``SweepResult``; ``raw`` and
+    any other extra keys land in ``extras``."""
+    d = json.loads(doc) if isinstance(doc, str) else dict(doc)
+    (sweep_name, sweep_values), = d["sweep"].items()
+    known = ("experiment", "sweep", "n_mc", "curves", "seconds")
+    return SweepResult(
+        name=d["experiment"], sweep_name=sweep_name, sweep_values=list(sweep_values),
+        curves={k: list(v) for k, v in d["curves"].items()}, n_mc=d["n_mc"],
+        seconds=d["seconds"], extras={k: v for k, v in d.items() if k not in known},
+    )

@@ -1,1 +1,2 @@
-from jstsp19_torch.kernels.admm_fused import fused_tracked_admm  # noqa: F401
+"""Hand-written CUDA kernels (sm_90a) with their plain PyTorch versions:
+``admm_fused``, ``dictionary`` and ``softthresh``, built by ``build``."""

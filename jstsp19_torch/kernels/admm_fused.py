@@ -20,10 +20,9 @@ from typing import Optional, Tuple
 import torch
 
 from jstsp19_torch.core.config import use_full_fp32
+from jstsp19_torch.kernels.build import SMEM_LIMIT_BYTES, check_tensor as _check, raise_on_launch_error
 from jstsp19_torch.ops.jacobi import _round_robin_schedule
 from jstsp19_torch.solvers.admm import proposed_admm
-
-SMEM_LIMIT_BYTES = 232_448  # dynamic shared memory one block may use on Hopper
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,24 +48,14 @@ def fused_tracked_admm_plain(
     subY, Omega, A, B, tau_Y, tau_S, rho, Imax=100, support_rank=None,
     track_rounds=1, support_base=10, support_step=5,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's plain PyTorch version: the batched tracked-SVT ADMM."""
+    """The kernel's plain PyTorch version: the batched tracked-SVT ADMM, with
+    the per-op kernels off so that it stays plain PyTorch on the card."""
     res = proposed_admm(
         subY, Omega, A, B, Imax, tau_Y, tau_S, rho, support_rank=support_rank,
         support_base=support_base, support_step=support_step,
-        svt_method="tracked", track_rounds=track_rounds,
+        svt_method="tracked", track_rounds=track_rounds, use_kernels=False,
     )
     return res.S, res.Y
-
-
-def _check(name: str, x: torch.Tensor, shape, dtype, device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on device {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def fused_tracked_admm(
@@ -147,8 +136,7 @@ def fused_tracked_admm(
             Bt, N, M, Gr, K, Imax, track_rounds, support_base, support_step,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-        if rc != 0:
-            raise RuntimeError(f"fused_tracked_admm launch failed: CUDA error {rc}")
+        raise_on_launch_error("fused_tracked_admm", rc)
         fused_tracked_admm.launches += 1
     return torch.complex(s_re, s_im), torch.complex(y_re, y_im)
 

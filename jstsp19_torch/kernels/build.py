@@ -1,10 +1,12 @@
-"""Build the port's CUDA kernels at first use.
+"""Build the port's CUDA kernels at first use, and check what their wrappers
+hand them.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface under ``kernels/build/``, named by a
 hash of the source and the flags, and loaded with ``ctypes``.  Only the
 sources in the checkout are used; nothing is fetched.  Build and load happen
-inside the call that needs the kernel, never at import.
+inside the call that needs the kernel, never at import.  :func:`build_all`
+starts one ``nvcc`` per source, all at once.
 """
 from __future__ import annotations
 
@@ -16,6 +18,10 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import time
+from typing import Dict, Iterable
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
@@ -23,6 +29,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+KERNELS = ("admm_fused", "dict_correlation", "soft_threshold")
+SMEM_LIMIT_BYTES = 232_448  # dynamic shared memory one block may use on Hopper
 
 
 def nvcc_path() -> str:
@@ -43,27 +51,71 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name: str) -> pathlib.Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same hash exists.
+def build_all(names: Iterable[str]) -> Dict[str, float]:
+    """Compile each ``csrc/<name>.cu`` whose library (same hash) is missing,
+    one ``nvcc`` per source, all started together.  Returns the seconds from
+    the common start until each build ended (0.0 where the library existed).
     The compiler's report (``-Xptxas -v``: registers, shared memory, spills)
-    is kept beside the library as ``.log``."""
-    out = library_path(name)
-    if out.exists():
-        return out
+    is kept beside each library as ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    return out
+    t0 = time.time()
+    running = {}
+    seconds = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            seconds[name] = 0.0
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        running[name] = (proc, tmp, out)
+    failed = []
+    while running:
+        for name, (proc, tmp, out) in list(running.items()):
+            if proc.poll() is None:
+                continue
+            seconds[name] = time.time() - t0
+            stdout, stderr = proc.communicate()
+            out.with_suffix(".log").write_text(stdout + stderr)
+            del running[name]
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(f"nvcc failed for {name}.cu:\n{stderr}")
+            else:
+                os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+        time.sleep(0.05)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds
+
+
+def build(name: str) -> pathlib.Path:
+    """Compile ``csrc/<name>.cu`` unless a library of the same hash exists."""
+    build_all([name])
+    return library_path(name)
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``lib<name>``; one handle per process."""
     return ctypes.CDLL(str(build(name)))
+
+
+def check_tensor(name: str, x: torch.Tensor, shape, dtype, device) -> None:
+    """Raise unless ``x`` has the device, dtype and shape a kernel takes and
+    is contiguous."""
+    if x.device != device:
+        raise ValueError(f"{name} is on device {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on_launch_error(kernel: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")

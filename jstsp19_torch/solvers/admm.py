@@ -14,9 +14,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from jstsp19_torch.kernels.dictionary import dict_correlation, dict_correlation_plain
+from jstsp19_torch.kernels.softthresh import fused_soft_threshold, fused_soft_threshold_plain
 from jstsp19_torch.ops.tracked import make_tracked_svt
 from jstsp19_torch.solvers.lowrank import svt
-from jstsp19_torch.solvers.sparse import soft_threshold
 
 
 class AdmmState(NamedTuple):
@@ -87,6 +88,8 @@ def proposed_admm(
     svt_method: str = "eigh",
     track_rounds: int = 1,
     track_precision: str = "highest",
+    *,
+    use_kernels: bool = True,
 ) -> AdmmResult:
     """Joint matrix-completion + beamspace-sparse ADMM, batched.
 
@@ -108,6 +111,10 @@ def proposed_admm(
          'jacobi' is not ported yet.
       track_precision: accepted for signature parity; every product of
          the port runs in full float32 whatever its value.
+      use_kernels: the correlation Aᴴ·K·Bᴴ and the soft threshold go
+         through their kernels' wrappers (``kernels/dictionary.py``,
+         ``kernels/softthresh.py``: the CUDA kernels on CUDA tensors);
+         False runs their plain PyTorch versions.
     """
     N, M = subY.shape[-2:]
     Gr = A.shape[-1]
@@ -139,6 +146,8 @@ def proposed_admm(
     tracked = svt_method == "tracked"
 
     total = Gr * K
+    correlate = dict_correlation if use_kernels else dict_correlation_plain
+    shrink = fused_soft_threshold if use_kernels else fused_soft_threshold_plain
 
     def sqn(X):
         if conv_norm == "fro":
@@ -179,7 +188,7 @@ def proposed_admm(
         Kmat = X - V2 / rho_c - C
         v_prev = v
         if mode == "approximate":
-            res = A.mH @ Kmat @ B.mH - AhA @ v @ BBh
+            res = correlate(A, Kmat, B) - AhA @ v @ BBh
             Rres = AhA @ res @ BBh
             num = torch.sum(res.abs() ** 2, dim=(-2, -1))
             den = torch.sum(res.conj() * Rres, dim=(-2, -1)).real
@@ -193,7 +202,7 @@ def proposed_admm(
             v = pinvA @ Kmat @ pinvB
             conv3 = torch.zeros(v.shape[:-2], dtype=rdt, device=v.device)
 
-        S = soft_threshold(v, thr_S)
+        S = shrink(v, thr_S)
         if support_rank is not None:
             nnz_i = min(support_base + support_step * (i + 1), total)
             S = torch.where(support_rank < nnz_i, S, torch.zeros_like(S))

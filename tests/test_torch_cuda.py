@@ -1,7 +1,7 @@
-"""Card-only tests of the port's CUDA kernel against its plain version.
+"""Card-only tests of the port's CUDA kernels against their plain versions.
 
-The fused ADMM kernel (``jstsp19_torch/kernels/csrc/admm_fused.cu``) has no
-CPU mode, so these tests skip where no CUDA device is present.  This file
+The kernels (``jstsp19_torch/kernels/csrc/*.cu``) have no CPU mode, so
+these tests skip where no CUDA device is present.  This file
 imports no JAX; on the GPU machine run it alone, without the JAX suite's
 conftest:
 
@@ -18,8 +18,11 @@ from jstsp19_torch.harness.pipeline import (
     proposed_problem,
     realization_errors,
 )
+from jstsp19_torch.core.metrics import clamped_nmse
 from jstsp19_torch.kernels.admm_fused import fused_tracked_admm, fused_tracked_admm_plain
-from jstsp19_torch.solvers.admm import admm_hyperparams
+from jstsp19_torch.kernels.dictionary import dict_correlation, dict_correlation_plain
+from jstsp19_torch.kernels.softthresh import fused_soft_threshold, fused_soft_threshold_plain
+from jstsp19_torch.solvers.admm import admm_hyperparams, proposed_admm
 
 pytestmark = pytest.mark.cuda
 
@@ -32,6 +35,11 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused ADMM kernel has no CPU mode")
     return torch.device("cuda")
+
+
+def _crandn(device, *shape, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(*shape, generator=g, device=device, dtype=torch.complex64)
 
 
 def _problem(device, seed=0):
@@ -127,3 +135,76 @@ def test_fused_route_matches_tracked_route_on_card(cuda):
         torch.testing.assert_close(out[m], ref[m], rtol=2e-3, atol=2e-4)
     prob = proposed_problem(prng.realization_generators(5, 0, cuda), pc, 1.0, 16)
     assert prob["subY"].is_cuda and prob["rank"].dtype == torch.int32
+
+
+@pytest.mark.parametrize("shape,shared", [
+    ((256, 32, 20, 32, 16), False),   # the errorVSnrf ADMM
+    ((256, 4, 16, 32, 16), False),   # VAMP's adjoint at Mr=4
+    ((256, 8, 16, 32, 16), False),   # VAMP's adjoint at Mr=8
+    ((256, 12, 16, 32, 16), False),  # VAMP's adjoint at Mr=12
+    ((256, 16, 16, 32, 16), False),  # VAMP's adjoint at Mr=16
+    ((256, 32, 140, 32, 16), True),   # canonical, the TPU signature
+    ((256, 32, 140, 32, 16), False),  # canonical, the tracked route
+    ((5, 32, 400, 32, 64), False),    # errorVSnt Nt=16: three column tiles
+    ((3, 7, 9, 5, 3), True),          # odd sizes
+])
+def test_dict_correlation_kernel_matches_plain(cuda, shape, shared):
+    """max|Δ| ≤ 1e-5·max|ref|: the same fp32 contractions in another order."""
+    b, N, M, Gr, Kd = shape
+    A = _crandn(cuda, *(() if shared else (b,)), N, Gr, seed=1)
+    K = _crandn(cuda, b, N, M, seed=2)
+    B = _crandn(cuda, *(() if shared else (b,)), Kd, M, seed=3)
+    before = dict_correlation.launches
+    out = dict_correlation(A, K, B)
+    torch.cuda.synchronize()
+    assert dict_correlation.launches == before + 1 and out.shape == (b, Gr, Kd)
+    ref = dict_correlation_plain(A, K, B)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(out, dict_correlation(A, K, B))  # deterministic
+
+
+def test_dict_correlation_rejects_what_it_does_not_take(cuda):
+    A, K, B = _crandn(cuda, 4, 32, 32), _crandn(cuda, 4, 32, 20), _crandn(cuda, 4, 16, 20)
+    with pytest.raises(ValueError, match="contiguous"):
+        dict_correlation(A, K.transpose(1, 2).contiguous().transpose(1, 2), B)
+    with pytest.raises(ValueError, match="dtype"):
+        dict_correlation(A, K.to(torch.complex128), B)
+    with pytest.raises(ValueError, match="shape"):
+        dict_correlation(A[:3], K, B)
+    with pytest.raises(ValueError, match="shared memory"):
+        dict_correlation(_crandn(cuda, 200, 100), _crandn(cuda, 1, 200, 50), _crandn(cuda, 16, 50))
+
+
+@pytest.mark.parametrize("per_matrix", [False, True])
+def test_soft_threshold_kernel_matches_plain(cuda, per_matrix):
+    """max|Δ| ≤ 1e-6 (measured 0: the same float32 operations), NaN
+    passed through as the plain version does."""
+    v = _crandn(cuda, 256, 32, 16, seed=4) * 0.3
+    v[0, 0, 0] = complex(float("nan"), 0.0)
+    tau = torch.rand(256, 1, 1, device=cuda) * 0.4 if per_matrix else 0.2
+    before = fused_soft_threshold.launches
+    out = fused_soft_threshold(v, tau)
+    torch.cuda.synchronize()
+    assert fused_soft_threshold.launches == before + 1
+    ref = fused_soft_threshold_plain(v, tau)
+    assert torch.equal(torch.isnan(out.real), torch.isnan(ref.real))
+    fin = torch.isfinite(ref.real)
+    assert float((out - ref)[fin].abs().max()) <= 1e-6
+
+
+def test_unfused_solve_runs_the_kernels(cuda):
+    """The unfused ADMM at the errorVSnrf shape launches both kernels once
+    per iteration, and its NMSE matches use_kernels=False at rtol 2e-3,
+    atol 2e-4."""
+    pc = PointConfig(Mr=16, T=5, methods=("proposed",))
+    prob = proposed_problem(prng.realization_generators(2, 3, cuda), pc, 10 ** -0.5, 64)
+    args = [prob[k] for k in ("subY", "Omega", "A", "B")] + [IMAX] + [
+        prob[k] for k in ("tau_Y", "tau_S", "rho")]
+    d0, s0 = dict_correlation.launches, fused_soft_threshold.launches
+    for svt_method in ("eigh", "tracked"):
+        S_on = proposed_admm(*args, svt_method=svt_method).S
+        S_off = proposed_admm(*args, svt_method=svt_method, use_kernels=False).S
+        torch.testing.assert_close(
+            clamped_nmse(S_on, prob["Zbar"]), clamped_nmse(S_off, prob["Zbar"]), rtol=2e-3, atol=2e-4)
+    assert dict_correlation.launches - d0 == 2 * IMAX
+    assert fused_soft_threshold.launches - s0 == 2 * IMAX
