@@ -35,11 +35,28 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    ``results/error_vs_nrf.json``; the wall time of each point;
 8. one errorVSnrf point (Mr=16, T=5, B=256, Imax=100) on the unfused route
    with the kernels on and off: per-realization NMSE within rtol 2e-3,
-   atol 2e-4; both timed with CUDA events (5 reps after a warm-up).
+   atol 2e-4; both timed with CUDA events (5 reps after a warm-up);
+9. the build time and compiler report of ``fwht.cu`` (built in phase 1);
+10. the FWHT kernel against its plain version at n in 2, 64, 4096, 32768,
+    65536 and 2^20, float32 and complex64, natural and sequency order,
+    forward and inverse: max|Δ| = 0, or at most 1e-6·max|ref|; its time per
+    call at (32, 65536) and (256, 4096) against the plain version and against
+    one ``torch.matmul`` with the dense sequency Walsh matrix;
+11. the third slice, partial Walsh–Hadamard compressive sensing
+    (``harness/hadamard_cs.py``: B=32, n=65536, m=16384, ε=0.05, 40 dB)
+    through ``gamp_est`` (``GampOptions()``) and the lean ``gamp`` (100
+    iterations, step 0.9): ``fwht_kernel.launches`` rose by at least 2 × the
+    iterations run; every NMSE finite; the per-realization NMSE within 1%
+    of the same solve with the kernel off; each solver's batch mean NMSE (dB)
+    within 4 combined standard errors of ``results/torch_gamp_fwht_jax.json``;
+12. both solvers timed with CUDA events (5 reps after a warm-up), the
+    kernel on and off in turns.
 
-Then one JSON line with each kernel's launches, error and times, the card
-line, and last ``{"ok": true, "device": {...}}``.  Needs a CUDA device; there
-is no CPU fallback.
+Then one JSON line with each kernel's launches, error, times and bound (the
+larger of its bytes over 3.35 TB/s and its float32 operations over
+67 TFLOP/s, the H100 SXM's published peaks), the card line, and last
+``{"ok": true, "device": {...}}``.  Needs a CUDA device; there is no CPU
+fallback.
 """
 from __future__ import annotations
 
@@ -52,6 +69,7 @@ import re
 import sys
 import tempfile
 
+import numpy as np
 import torch
 
 B_CHECK, IMAX_CHECK = 8, 25
@@ -59,6 +77,48 @@ B_MAIN, IMAX_MAIN = 256, 100
 NRF_MR = (4, 8, 12, 16)
 NV_5DB = 10 ** (-0.5)
 TIMED_CALLS = 200
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published (on-chip-measurement guide)
+FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
+FWHT_NS = (2, 64, 4096, 32768, 65536, 1 << 20)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate and
+    the float32 operations over the peak rate."""
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / FP32_FLOP_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _admm_flops(B: int, N: int, M: int, Gr: int, K: int, Imax: int) -> float:
+    """Real float32 operations of the fused ADMM's complex products (8 per
+    complex multiply-add) over Imax iterations: P = UᴴW and Y = U(f∘P), one
+    round of N/2 Jacobi rotations on U and P with their 2×2 Grams, A·S·B,
+    Aᴴ·K·Bᴴ, and (AᴴA)·v·(BBᴴ) for the gradient and the exact step.  The
+    elementwise work is left out, so the count is a lower bound."""
+    macs = (2 * N * N * M + N * Gr * K + N * K * M + Gr * N * M + Gr * M * K
+            + 2 * (Gr * Gr * K + Gr * K * K) + (N // 2) * (7 * M + 4 * N))
+    return 8.0 * macs * Imax * B
+
+
+def _walsh_t(n: int, device) -> torch.Tensor:
+    """The dense (n, n) float32 matrix Wᵀ with ``fwht(x) = x @ Wᵀ``
+    (sequency order): Wᵀ[j, k] = (−1)^popcount(j & perm(k)) / √n, built in
+    row chunks on the device."""
+    from jstsp19_torch.kernels.wht import _sequency_perm
+
+    perm = torch.as_tensor(_sequency_perm(n), dtype=torch.int32, device=device)
+    out = torch.empty((n, n), dtype=torch.float32, device=device)
+    step = max(1, (1 << 27) // n)
+    for j0 in range(0, n, step):
+        v = torch.arange(j0, min(n, j0 + step), dtype=torch.int32, device=device)[:, None] & perm[None, :]
+        for s in (16, 8, 4, 2, 1):
+            v = v ^ (v >> s)
+        out[j0:j0 + v.shape[0]] = (1 - 2 * (v & 1)).to(torch.float32) / math.sqrt(n)
+    return out
 
 
 def _stats(raw):
@@ -122,12 +182,16 @@ def main() -> int:
     from jstsp19_torch.core.metrics import clamped_nmse
     from jstsp19_torch.harness.pipeline import PointConfig, fused_point_errors, proposed_problem
     from jstsp19_torch import __main__ as cli
-    from jstsp19_torch.kernels import admm_fused, dictionary, softthresh
+    from jstsp19_torch.harness import hadamard_cs as hcs
+    from jstsp19_torch.kernels import admm_fused, dictionary, softthresh, wht
     from jstsp19_torch.kernels.admm_fused import fused_tracked_admm, fused_tracked_admm_plain
     from jstsp19_torch.kernels.build import KERNELS, build_all
     from jstsp19_torch.kernels.dictionary import dict_correlation, dict_correlation_plain
     from jstsp19_torch.kernels.softthresh import fused_soft_threshold, fused_soft_threshold_plain
+    from jstsp19_torch.kernels.wht import fwht_kernel, fwht_plain, ifwht_plain
     from jstsp19_torch.solvers.admm import proposed_admm
+    from jstsp19_torch.solvers.gamp import gamp
+    from jstsp19_torch.solvers.gamp_full import gamp_est
 
     root = pathlib.Path(__file__).resolve().parent
     dev = torch.device("cuda")
@@ -139,7 +203,7 @@ def main() -> int:
 
     # ---- 1. build: one nvcc per kernel source, all started together -------------
     build_seconds = build_all(KERNELS)
-    for module in (admm_fused, dictionary, softthresh):
+    for module in (admm_fused, dictionary, softthresh, wht):
         module._library()
     _print_build("[1]", "admm_fused", build_seconds)
 
@@ -219,6 +283,13 @@ def main() -> int:
         print(f"[4] route {route}: {B_MAIN / best:.1f} est/s at B={B_MAIN} (card: {card}); "
               f"NMSE batch means {[round(m, 4) for m in means]}")
 
+    Bt, N, M = prob["subY"].shape
+    Gr, K = prob["A"].shape[-1], prob["B"].shape[-2]
+    admm_bound = _bound(_nbytes(*args, S_k) + Bt * N * M * 8,  # the inputs, S and Y (complex64)
+                        _admm_flops(Bt, N, M, Gr, K, IMAX_MAIN))
+    print(f"[4] bound at B={Bt}, Imax={IMAX_MAIN}: {admm_bound[0]:.3f} ms, set by {admm_bound[1]} "
+          f"({_admm_flops(Bt, N, M, Gr, K, IMAX_MAIN) / 1e9:.3f} GFLOP of complex products)")
+
     kernels = [{
         "name": "fused_tracked_admm",
         "route": "cuda",
@@ -228,6 +299,9 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": admm_bound[0],
+        "bound_by": admm_bound[1],
+        "library_ms": None,
     }]
 
     # ---- 5. the second slice's kernels: build report -------------------------------
@@ -278,9 +352,17 @@ def main() -> int:
     dict_plain_ms = _per_call_ms(lambda: dict_correlation_plain(A_, K_, B_))
     soft_ms = _per_call_ms(lambda: fused_soft_threshold(v, tau_per))
     soft_plain_ms = _per_call_ms(lambda: fused_soft_threshold_plain(v, tau_per))
-    print(f"[6] per call, mean of {TIMED_CALLS}: dict_correlation {dict_ms:.4f} ms (plain {dict_plain_ms:.4f} ms) "
-          f"at K {tuple(K_.shape)}; soft_threshold {soft_ms:.4f} ms (plain {soft_plain_ms:.4f} ms) "
-          f"at v {tuple(v.shape)} (card: {card})")
+    # one PyTorch call computing Aᴴ·K·Bᴴ (conj() is a lazy view): the einsum
+    dict_library_ms = _per_call_ms(lambda: torch.einsum("...ng,...nm,...km->...gk", A_.conj(), K_, B_.conj()))
+    print(f"[6] per call, mean of {TIMED_CALLS}: dict_correlation {dict_ms:.4f} ms (plain {dict_plain_ms:.4f} ms, "
+          f"one einsum {dict_library_ms:.4f} ms) at K {tuple(K_.shape)}; soft_threshold {soft_ms:.4f} ms "
+          f"(plain {soft_plain_ms:.4f} ms) at v {tuple(v.shape)} (card: {card})")
+    Nk, Mk = K_.shape[-2:]
+    Grk, Kdk = A_.shape[-1], B_.shape[-2]
+    dict_bound = _bound(_nbytes(A_, K_, B_) + B * Grk * Kdk * 8, 8.0 * B * (Grk * Nk * Mk + Grk * Mk * Kdk))
+    soft_bound = _bound(_nbytes(v, tau_per, v), 6.0 * v.numel())
+    print(f"[6] bounds: dict_correlation {dict_bound[0] * 1e3:.3f} us ({dict_bound[1]}), "
+          f"soft_threshold {soft_bound[0] * 1e3:.3f} us ({soft_bound[1]})")
 
     # ---- 7. the second slice: the errorVSnrf sweep through the CLI ------------------
     dict_correlation.launches = 0
@@ -349,6 +431,9 @@ def main() -> int:
         "max_abs_err": dict_err,
         "ms": dict_ms,
         "plain_ms": dict_plain_ms,
+        "bound_ms": dict_bound[0],
+        "bound_by": dict_bound[1],
+        "library_ms": dict_library_ms,
     }, {
         "name": "soft_threshold",
         "route": "cuda",
@@ -358,7 +443,122 @@ def main() -> int:
         "max_abs_err": soft_err,
         "ms": soft_ms,
         "plain_ms": soft_plain_ms,
+        "bound_ms": soft_bound[0],
+        "bound_by": soft_bound[1],
+        "library_ms": None,  # softshrink takes one τ for all; the path passes one per matrix
     }]
+
+    # ---- 9. the third slice's kernel: build report ------------------------------------
+    _print_build("[9]", "fwht", build_seconds)
+
+    # ---- 10. the FWHT kernel against its plain version ---------------------------------
+    fwht_err = 0.0
+    for n in FWHT_NS:
+        rows = max(2, min(256, (1 << 21) // n))
+        for dtype in (torch.float32, torch.complex64):
+            x = torch.randn(rows, n, generator=g, device=dev, dtype=dtype)
+            for ordering in ("natural", "sequency"):
+                for inverse in (False, True):
+                    out_k = fwht_kernel(x, ordering, inverse=inverse)
+                    ref = (ifwht_plain if inverse else fwht_plain)(x, ordering)
+                    torch.cuda.synchronize()
+                    err, scale = float((out_k - ref).abs().max()), float(ref.abs().max())
+                    fwht_err = max(fwht_err, err)
+                    how = "max|d| = 0" if err == 0 else f"max|d| <= 1e-6*max|ref| = {1e-6 * scale:.3e}"
+                    ok = err <= 1e-6 * scale
+                    print(f"[10] fwht ({rows}, {n}) {str(dtype)[6:]} {ordering} {'inverse' if inverse else 'forward'}: "
+                          f"max|d|={err:.3e}; {how}: {ok}")
+                    if not ok:
+                        raise SystemExit("[10] the FWHT kernel disagrees with its plain version")
+    x_main = torch.randn(hcs.BATCH, hcs.N, generator=g, device=dev)
+    fwht_ms = _per_call_ms(lambda: fwht_kernel(x_main))
+    fwht_plain_ms = _per_call_ms(lambda: fwht_plain(x_main))
+    fwht_bound = _bound(_nbytes(x_main, x_main), x_main.numel() * math.log2(hcs.N))
+    x_small = torch.randn(256, 4096, generator=g, device=dev)
+    Wt = _walsh_t(4096, dev)
+    small = [_per_call_ms(f) for f in (lambda: fwht_kernel(x_small), lambda: fwht_plain(x_small),
+                                        lambda: torch.matmul(x_small, Wt))]
+    mm_err = float((torch.matmul(x_small, Wt) - fwht_plain(x_small)).abs().max())
+    print(f"[10] per call, mean of {TIMED_CALLS}, float32 sequency forward: ({hcs.BATCH}, {hcs.N}) kernel "
+          f"{fwht_ms:.4f} ms, plain {fwht_plain_ms:.4f} ms, bound {fwht_bound[0] * 1e3:.3f} us ({fwht_bound[1]}); "
+          f"(256, 4096) kernel {small[0]:.4f} ms, plain {small[1]:.4f} ms, dense Walsh matmul {small[2]:.4f} ms "
+          f"(max|d| to plain {mm_err:.2e}) (card: {card})")
+    del Wt
+    Wt = _walsh_t(hcs.N, dev)  # 17.2 GB: one dense product is the only single PyTorch call at this size
+    fwht_library_ms = _per_call_ms(lambda: torch.matmul(x_main, Wt), calls=10)
+    mm_err = float((torch.matmul(x_main, Wt) - fwht_plain(x_main)).abs().max())
+    print(f"[10] dense Walsh matmul at ({hcs.BATCH}, {hcs.N}): {fwht_library_ms:.3f} ms per call, mean of 10 "
+          f"(max|d| to plain {mm_err:.2e}) (card: {card})")
+    del Wt
+    torch.cuda.empty_cache()
+
+    # ---- 11. the third slice: partial Walsh–Hadamard CS through the GAMP core ----------
+    prob_cs = hcs.hadamard_cs_problem()
+    ref_cs = json.loads((root / "results" / "torch_gamp_fwht_jax.json").read_text())
+    routes = {flag: hcs.hadamard_cs_torch(prob_cs, dev, use_kernel=flag) for flag in (True, False)}
+
+    def solve_cs(solver, flag):
+        prior, like, op = routes[flag]
+        if solver == "gamp_est":
+            fin, _, _ = gamp_est(prior, like, op)
+            return fin.xhat, int(fin.nit.max())
+        return gamp(prior, like, op, nit=hcs.GAMP_NIT, step=hcs.GAMP_STEP).x, hcs.GAMP_NIT
+
+    fwht_launches = 0
+    iterations = {}
+    for solver in ("gamp_est", "gamp"):
+        fwht_kernel.launches = 0
+        xhat, its = solve_cs(solver, True)
+        torch.cuda.synchronize()
+        n_launch = fwht_kernel.launches
+        fwht_launches += n_launch
+        iterations[solver] = its
+        print(f"[11] {solver}: fwht_kernel launches = {n_launch} over {its} iterations (need >= {2 * its})")
+        if n_launch < 2 * its:
+            raise SystemExit(f"[11] {solver} did not go through the FWHT kernel")
+        xhat_off, _ = solve_cs(solver, False)
+        e_on = hcs.nmse_db(xhat.cpu().numpy(), prob_cs["x"])
+        e_off = hcs.nmse_db(xhat_off.cpu().numpy(), prob_cs["x"])
+        lin_on, lin_off = 10 ** (e_on / 10), 10 ** (e_off / 10)
+        rel = float(np.max(np.abs(lin_on - lin_off) / lin_off))
+        ok = bool(np.all(np.isfinite(e_on)) and rel <= 0.01)
+        print(f"[11] {solver}: NMSE kernel on {e_on.mean():.4f} dB, off {e_off.mean():.4f} dB; max per-realization "
+              f"relative |dNMSE| = {rel:.3e}; finite and within 1%: {ok}")
+        if not ok:
+            raise SystemExit(f"[11] {solver}: NMSE not finite or kernel on and off disagree")
+        r = ref_cs[solver]
+        mean, sd, n = float(e_on.mean()), float(e_on.std(ddof=1)), e_on.size
+        se = math.sqrt(r["sd_db"] ** 2 / len(r["nmse_db"]) + sd**2 / n)
+        inside = abs(mean - r["mean_db"]) <= 4 * se
+        worst = float(np.max(np.abs(e_on - np.asarray(r["nmse_db"]))))
+        print(f"[11] {solver}: batch mean {mean:.4f} dB (sd {sd:.4f}, n {n}) vs JAX {r['mean_db']:.4f} dB "
+              f"(sd {r['sd_db']:.4f}): z {(mean - r['mean_db']) / se:+.2f}, within 4 SE: {inside}; "
+              f"largest per-realization |d dB| against JAX {worst:.4f}")
+        if not inside:
+            raise SystemExit(f"[11] {solver}: batch mean NMSE outside 4 SE of the JAX reference")
+
+    # ---- 12. both solvers timed, kernel on and off ------------------------------------
+    for solver in ("gamp_est", "gamp"):
+        for label, flag in (("kernel on", True), ("kernel off", False), ("kernel on", True), ("kernel off", False)):
+            t, _ = cuda_event_times(lambda r: solve_cs(solver, flag), REPS)
+            best, median = min(t), sorted(t)[len(t) // 2]
+            print(f"[12] {solver} ({iterations[solver]} iterations), {label}: best {best * 1e3:.3f} ms, "
+                  f"median {median * 1e3:.3f} ms, spread {(max(t) - best) * 1e3:.3f} ms over {REPS} reps "
+                  f"(card: {card})")
+
+    kernels.append({
+        "name": "fwht",
+        "route": "cuda",
+        "source": "jstsp19_torch/kernels/csrc/fwht.cu",
+        "replaces": "jstsp19_tpu/kernels/wht.py:46",
+        "launches": fwht_launches,
+        "max_abs_err": fwht_err,
+        "ms": fwht_ms,
+        "plain_ms": fwht_plain_ms,
+        "bound_ms": fwht_bound[0],
+        "bound_by": fwht_bound[1],
+        "library_ms": fwht_library_ms,
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,18 +6,30 @@ device (and port tensors back into numpy), so both packages can compute on
 the same inputs: the ``proposed_problem`` dict, a ``Channel``, an ``AdmmState``
 and a batch of conventional-branch inputs; and a JAX sweep's JSON artifact
 becomes the port's ``SweepResult``.
+
+For the GAMP path: the estimators (``AwgnPrior``, ``CAwgnPrior``,
+``SparsePrior``, ``CAwgnLikelihood``), the operators (``MatrixOp``,
+``AdjointOp``, ``ScaledOp``, ``ComposedOp``, ``MaskOp``, ``DiagOp``,
+``IdentityOp``, ``SubsetOp``, ``UnifVarOp``, ``FWHTOp``, ``DFTOp``,
+``ToeplitzOp``, ``DCTOp``) and a ``GampState``, so that a JAX state can
+warm-start the port.  The JAX objects are read by class name and field, so
+nothing here imports JAX; the ``*_to_numpy`` helpers give the same form
+back as a dict with a ``"type"`` key and numpy fields.
 """
 from __future__ import annotations
 
 import json
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping, Sequence, Union
 
 import numpy as np
 import torch
 
 from jstsp19_torch.channel.widemmwave import Channel
 from jstsp19_torch.harness.runner import SweepResult
+from jstsp19_torch.ops import base, fourier, masked, structured
+from jstsp19_torch.solvers import estim
 from jstsp19_torch.solvers.admm import AdmmState
+from jstsp19_torch.solvers.gamp_full import GampState
 
 PROBLEM_KEYS = ("subY", "Omega", "A", "B", "tau_Y", "tau_S", "rho", "Zbar", "rank")
 CONVENTIONAL_KEYS = ("Y_c", "A_c", "B_c", "Zbar")
@@ -97,3 +109,126 @@ def sweep_result_from_json(doc: Union[str, Mapping]) -> SweepResult:
         curves={k: list(v) for k, v in d["curves"].items()}, n_mc=d["n_mc"],
         seconds=d["seconds"], extras={k: v for k, v in d.items() if k not in known},
     )
+
+
+# -- the GAMP path -------------------------------------------------------------
+
+ESTIMATOR_FIELDS = {
+    "AwgnPrior": ("mean0", "var0"),
+    "CAwgnPrior": ("mean0", "var0"),
+    "SparsePrior": ("base", "p1"),
+    "CAwgnLikelihood": ("y", "wvar", "scale"),
+}
+OP_FIELDS = {
+    "MatrixOp": (base, ("A",)),
+    "AdjointOp": (base, ("base",)),
+    "ScaledOp": (base, ("base", "alpha")),
+    "ComposedOp": (base, ("outer", "inner")),
+    "MaskOp": (masked, ("Omega",)),
+    "DiagOp": (masked, ("d",)),
+    "IdentityOp": (structured, ("n",)),
+    "SubsetOp": (structured, ("base", "idx")),
+    "UnifVarOp": (structured, ("base", "in_avg", "out_avg")),
+    "FWHTOp": (fourier, ("n", "ordering")),
+    "DFTOp": (fourier, ("n",)),
+    "ToeplitzOp": (fourier, ("col", "row")),
+    "DCTOp": (fourier, ("n",)),
+}
+_SUB_OPS = ("base", "outer", "inner")
+_STATIC = (bool, int, float, complex, str)
+
+
+def _kind(obj) -> str:
+    return obj["type"] if isinstance(obj, Mapping) else type(obj).__name__
+
+
+def _value_to_torch(v, device):
+    """A Python number or string stays; an array becomes a tensor."""
+    return v if isinstance(v, _STATIC) else to_torch(v, device)
+
+
+def _value_to_numpy(v):
+    return v if isinstance(v, _STATIC) else (to_numpy(v) if isinstance(v, torch.Tensor) else np.asarray(v))
+
+
+def estimator_to_torch(est, device=None):
+    """A JAX estimator (or its ``estimator_to_numpy`` dict) as the port's."""
+    name = _kind(est)
+    kw = {f: estimator_to_torch(_field(est, f), device) if f == "base" else _value_to_torch(_field(est, f), device)
+          for f in ESTIMATOR_FIELDS[name]}
+    return getattr(estim, name)(**kw)
+
+
+def estimator_to_numpy(est) -> Dict[str, object]:
+    name = _kind(est)
+    out = {"type": name}
+    for f in ESTIMATOR_FIELDS[name]:
+        v = getattr(est, f)
+        out[f] = estimator_to_numpy(v) if f == "base" else _value_to_numpy(v)
+    return out
+
+
+def op_to_torch(op, device=None):
+    """A JAX operator (or its ``op_to_numpy`` dict) as the port's; a
+    ``SubsetOp``'s static index tuple becomes an int64 tensor."""
+    name = _kind(op)
+    module, fields = OP_FIELDS[name]
+    kw = {}
+    for f in fields:
+        v = _field(op, f)
+        if f in _SUB_OPS:
+            kw[f] = op_to_torch(v, device)
+        elif f == "idx":
+            kw[f] = torch.as_tensor(np.asarray(v, dtype=np.int64), device=device)
+        else:
+            kw[f] = _value_to_torch(v, device)
+    return getattr(module, name)(**kw)
+
+
+def op_to_numpy(op) -> Dict[str, object]:
+    """The port's operator as a dict of numpy fields (``idx`` an int64
+    array; the JAX ``SubsetOp`` takes ``tuple(idx)``)."""
+    name = _kind(op)
+    out = {"type": name}
+    for f in OP_FIELDS[name][1]:
+        v = getattr(op, f)
+        out[f] = op_to_numpy(v) if f in _SUB_OPS else _value_to_numpy(v)
+    return out
+
+
+def _stack_states(states: Sequence) -> Dict[str, object]:
+    """One JAX ``GampState`` per realization as one batched numpy dict: the
+    per-problem scalars become (B, 1), the vectors and the window (B, …);
+    the likelihood's y is stacked and its wvar becomes (B, 1)."""
+    out: Dict[str, object] = {}
+    for f in GampState._fields:
+        if f == "likelihood":
+            continue
+        vals = [np.asarray(_field(s, f)) for s in states]
+        out[f] = np.stack([v[None] if v.ndim == 0 else v for v in vals])
+    like = _field(states[0], "likelihood")
+    out["likelihood"] = {
+        "type": _kind(like),
+        "y": np.stack([np.asarray(_field(_field(s, "likelihood"), "y")) for s in states]),
+        "wvar": np.stack([np.asarray(_field(_field(s, "likelihood"), "wvar")).reshape(1) for s in states]),
+        "scale": _field(like, "scale") if isinstance(_field(like, "scale"), _STATIC)
+        else np.asarray(_field(like, "scale")),
+    }
+    return out
+
+
+def gamp_state_to_torch(state, device=None) -> GampState:
+    """A ``GampState``: one JAX state (a batch of one), a sequence of JAX
+    states (one per realization, stacked), or the dict of
+    :func:`gamp_state_to_numpy`."""
+    if not isinstance(state, Mapping):
+        state = _stack_states(list(state) if isinstance(state, (list, tuple)) and not hasattr(state, "_fields")
+                              else [state])
+    fields = {f: to_torch(state[f], device) for f in GampState._fields if f != "likelihood"}
+    return GampState(**fields, likelihood=estimator_to_torch(state["likelihood"], device))
+
+
+def gamp_state_to_numpy(state: GampState) -> Dict[str, object]:
+    out = {f: to_numpy(getattr(state, f)) for f in GampState._fields if f != "likelihood"}
+    out["likelihood"] = estimator_to_numpy(state.likelihood)
+    return out

@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("admm_fused", "dict_correlation", "soft_threshold")
+KERNELS = ("admm_fused", "dict_correlation", "soft_threshold", "fwht")
 SMEM_LIMIT_BYTES = 232_448  # dynamic shared memory one block may use on Hopper
 
 

@@ -1,2 +1,3 @@
-"""Solvers: the soft threshold, SVT, the proposed ADMM, and the baselines LS,
-MMV-OMP and VAMP with its estimators."""
+"""Solvers: the soft threshold, SVT, the proposed ADMM, the baselines LS,
+MMV-OMP and VAMP, the scalar estimators, and the GAMP core (``gamp_est``,
+``gamp``, ``amp``, ``fista``, ``sure_amp``)."""

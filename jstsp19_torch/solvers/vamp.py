@@ -63,8 +63,9 @@ def vamp_glm(prior, likelihood, op: KronDictOp, nit: int = 100, damp: float = 0.
     def Uh(Z):
         return op.to_eigbasis(Ua, Ub, Z)
 
-    dt, dev = torch.complex64, y.device
-    rdt = torch.float32
+    # complex64 unless y is wider, as the JAX function takes its dtype from y
+    dt, dev = torch.promote_types(y.dtype, torch.complex64), y.device
+    rdt = dt.to_real()
     tiny = torch.finfo(rdt).tiny
     col = batch + (1, 1)
     r1 = torch.full(batch + in_shape, 1e-7j, dtype=dt, device=dev)  # r1init = eps*1i (vamp.m:44)

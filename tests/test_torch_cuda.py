@@ -22,7 +22,10 @@ from jstsp19_torch.core.metrics import clamped_nmse
 from jstsp19_torch.kernels.admm_fused import fused_tracked_admm, fused_tracked_admm_plain
 from jstsp19_torch.kernels.dictionary import dict_correlation, dict_correlation_plain
 from jstsp19_torch.kernels.softthresh import fused_soft_threshold, fused_soft_threshold_plain
+from jstsp19_torch.kernels.wht import fwht_kernel, fwht_plain, ifwht_plain
+from jstsp19_torch.harness import hadamard_cs as hcs
 from jstsp19_torch.solvers.admm import admm_hyperparams, proposed_admm
+from jstsp19_torch.solvers.gamp_full import GampOptions, gamp_est
 
 pytestmark = pytest.mark.cuda
 
@@ -208,3 +211,47 @@ def test_unfused_solve_runs_the_kernels(cuda):
             clamped_nmse(S_on, prob["Zbar"]), clamped_nmse(S_off, prob["Zbar"]), rtol=2e-3, atol=2e-4)
     assert dict_correlation.launches - d0 == 2 * IMAX
     assert fused_soft_threshold.launches - s0 == 2 * IMAX
+
+
+@pytest.mark.parametrize("n", [2, 64, 4096, 32768, 65536, 1 << 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+def test_fwht_kernel_matches_plain(cuda, n, dtype):
+    """Bit-equal (max|Δ| = 0) in both orders and directions: the kernel runs
+    the plain version's additions in the same order and divides by the same
+    float32 √n, in one block per row up to 128 KB a row and in two passes
+    above."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(max(2, min(256, (1 << 21) // n)), n, generator=g, device=cuda, dtype=dtype)
+    for ordering in ("natural", "sequency"):
+        for inverse in (False, True):
+            before = fwht_kernel.launches
+            out = fwht_kernel(x, ordering, inverse=inverse)
+            torch.cuda.synchronize()
+            assert fwht_kernel.launches == before + 1
+            ref = (ifwht_plain if inverse else fwht_plain)(x, ordering)
+            assert torch.equal(out, ref), (ordering, inverse, float((out - ref).abs().max()))
+
+
+def test_fwht_kernel_rejects_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError, match="power of two"):
+        fwht_kernel(torch.zeros(2, 48, device=cuda))
+    with pytest.raises(ValueError, match="float32 or complex64"):
+        fwht_kernel(torch.zeros(2, 64, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="supports n"):
+        fwht_kernel(torch.zeros(1, 1 << 25, device=cuda))
+    with pytest.raises(ValueError, match="ordering"):
+        fwht_kernel(torch.zeros(2, 64, device=cuda), "dyadic")
+
+
+def test_gamp_est_runs_the_fwht_kernel(cuda):
+    """A small partial-Hadamard problem (B=4, n=4096) through gamp_est with
+    the kernel on and off: two launches per iteration run, and the same
+    estimate (the kernel is bit-equal to its plain version)."""
+    prob = hcs.hadamard_cs_problem(seed=1, batch=4, n=4096)
+    before = fwht_kernel.launches
+    fin_on, _, _ = gamp_est(*hcs.hadamard_cs_torch(prob, cuda), GampOptions(nit=50))
+    torch.cuda.synchronize()
+    assert fwht_kernel.launches - before == 2 * int(fin_on.nit.max())
+    fin_off, _, _ = gamp_est(*hcs.hadamard_cs_torch(prob, cuda, use_kernel=False), GampOptions(nit=50))
+    torch.testing.assert_close(fin_on.xhat, fin_off.xhat, rtol=1e-5, atol=1e-6)
+    assert np.all(hcs.nmse_db(fin_on.xhat.cpu().numpy(), prob["x"]) < -40)

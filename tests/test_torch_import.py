@@ -24,10 +24,15 @@ def test_import_leaves_jax_out():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jstsp19_tpu'))]\n"
         "print('BAD', bad)\n"
+        "print('LOADED', sorted(m for m in sys.modules if m.startswith('jstsp19_torch')))\n"
     )
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout
+    # the GAMP slice's modules are among those imported
+    for mod in ("ops.masked", "ops.structured", "ops.fourier", "kernels.wht", "solvers.gamp",
+                "solvers.gamp_full", "harness.hadamard_cs", "interop"):
+        assert f"'jstsp19_torch.{mod}'" in proc.stdout, mod
 
 
 def test_sources_import_neither_jax_nor_the_jax_package():
