@@ -77,7 +77,7 @@ B_MAIN, IMAX_MAIN = 256, 100
 NRF_MR = (4, 8, 12, 16)
 NV_5DB = 10 ** (-0.5)
 TIMED_CALLS = 200
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published (on-chip-measurement guide)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth, published
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
 FWHT_NS = (2, 64, 4096, 32768, 65536, 1 << 20)
 
