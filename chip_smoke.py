@@ -50,7 +50,17 @@ Phases (any failure ends the run with a non-zero exit code and no result):
     of the same solve with the kernel off; each solver's batch mean NMSE (dB)
     within 4 combined standard errors of ``results/torch_gamp_fwht_jax.json``;
 12. both solvers timed with CUDA events (5 reps after a warm-up), the
-    kernel on and off in turns.
+    kernel on and off in turns;
+13. the fused ADMM kernel against its plain version at each of the 12
+    distinct shapes the fused route reaches in the seven sweep recipes
+    (N = Gr = 32, (M, K) from (40, 16) to (420, 48) and (400, 64); the
+    problems of those sweep points), B=8, Imax=25, with and without a
+    support rank: max|ΔS| ≤ 2e-4·max|S| and a finite Y; each shape's plan
+    (tile width, blocks per SM, shared memory) and the compiler's line for
+    the kernel instance it runs;
+14. the kernel timed at the canonical shape for B = 1, 132 and 256 and at
+    (M, K) = (420, 48) for B=256, Imax=100: best, median and spread of 5
+    CUDA-event reps, each beside its bound.
 
 Then one JSON line with each kernel's launches, error, times and bound (the
 larger of its bytes over 3.35 TB/s and its float32 operations over
@@ -80,6 +90,22 @@ TIMED_CALLS = 200
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth, published
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
 FWHT_NS = (2, 64, 4096, 32768, 65536, 1 << 20)
+# the fused route's 12 distinct (M, K) shapes in the seven recipes, each from
+# one sweep point that reaches it (PointConfig fields; N = Gr = 32)
+SWEEP_SHAPES = (
+    ("errorVSsnr (M=140, K=16)", {}),
+    ("errorVSframelength T=5 (M=40, K=32)", dict(Nt=8, Gt=8, T=5, beamformer="fft")),
+    ("errorVSframelength T=15 (M=120, K=32)", dict(Nt=8, Gt=8, T=15, beamformer="fft")),
+    ("errorVSframelength T=25 (M=200, K=32)", dict(Nt=8, Gt=8, T=25, beamformer="fft")),
+    ("errorVSframelength T=35 (M=280, K=32)", dict(Nt=8, Gt=8, T=35, beamformer="fft")),
+    ("errorVSdelays L=4 (M=40, K=16)", dict(L=4, T=10)),
+    ("errorVSdelays L=6 (M=60, K=24)", dict(L=6, T=15)),
+    ("errorVSdelays L=8 (M=80, K=32)", dict(L=8, T=20)),
+    ("errorVSdelays L=10 (M=100, K=40)", dict(L=10, T=25)),
+    ("errorVSnt Nt=6 (M=210, K=24)", dict(Nt=6, Gt=6, beamformer="fft")),
+    ("errorVSnt Nt=12 (M=420, K=48)", dict(Nt=12, Gt=12, beamformer="fft")),
+    ("errorVSnt Nt=16 (M=400, K=64)", dict(Nt=16, Gt=16, T=25, beamformer="fft")),
+)
 
 
 def _nbytes(*tensors) -> int:
@@ -95,12 +121,22 @@ def _bound(nbytes: float, flops: float):
 
 def _admm_flops(B: int, N: int, M: int, Gr: int, K: int, Imax: int) -> float:
     """Real float32 operations of the fused ADMM's complex products (8 per
-    complex multiply-add) over Imax iterations: P = UᴴW and Y = U(f∘P), one
-    round of N/2 Jacobi rotations on U and P with their 2×2 Grams, A·S·B,
-    Aᴴ·K·Bᴴ, and (AᴴA)·v·(BBᴴ) for the gradient and the exact step.  The
-    elementwise work is left out, so the count is a lower bound."""
-    macs = (2 * N * N * M + N * Gr * K + N * K * M + Gr * N * M + Gr * M * K
-            + 2 * (Gr * Gr * K + Gr * K * K) + (N // 2) * (7 * M + 4 * N))
+    complex multiply-add) over Imax iterations, each counted at its cheapest
+    association, so that no way of computing the same function needs fewer:
+    - the SVT, the cheaper of the P form (P = UᴴW; one round of N/2
+      rotations on P's rows with their 2×2 Grams and on U's columns;
+      Y = U(f∘P)) and the Gram form (G = WWᴴ, T = Uᴴ(GU), the rotations on
+      T's rows and columns and on U's columns, Z = U f Uᴴ, Y = ZW; G, T and
+      Z are Hermitian, so only half of each is counted);
+    - A·S, then (A·S)·B;
+    - Aᴴ·K·Bᴴ as the cheaper of Aᴴ(KBᴴ) and (AᴴK)Bᴴ;
+    - (AᴴA)·v·(BBᴴ) for the gradient and again for the exact step.
+    The elementwise work is left out, so the count is a lower bound."""
+    half = N * (N + 1) // 2
+    svt_p = 2 * N * N * M + (N // 2) * (7 * M + 4 * N)
+    svt_gram = half * M + N ** 3 + 2 * half * N + (N // 2) * 12 * N + N * N * M
+    macs = (min(svt_p, svt_gram) + N * Gr * K + N * K * M
+            + min(N * K * M + Gr * N * K, Gr * N * M + Gr * M * K) + 2 * (Gr * Gr * K + Gr * K * K))
     return 8.0 * macs * Imax * B
 
 
@@ -148,6 +184,20 @@ def _print_build(phase: str, name: str, seconds) -> None:
     log = library_path(name).with_suffix(".log")
     if log.exists():
         print(log.read_text().strip())
+
+
+def _ptxas_report(log: str) -> dict:
+    """{kernel symbol: its ``-Xptxas -v`` lines (stack, spills, registers) on
+    one line} from a build log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for " in line:
+            name, out[line.split("Function properties for ")[1].strip()] = line.split()[-1], ""
+        elif name is not None:
+            out[name] = (out[name] + " " + line.replace("ptxas info    :", "").strip()).strip()
+            if "Used " in line:
+                name = None
+    return out
 
 
 def _per_call_ms(fn, calls: int = TIMED_CALLS) -> float:
@@ -545,6 +595,51 @@ def main() -> int:
             print(f"[12] {solver} ({iterations[solver]} iterations), {label}: best {best * 1e3:.3f} ms, "
                   f"median {median * 1e3:.3f} ms, spread {(max(t) - best) * 1e3:.3f} ms over {REPS} reps "
                   f"(card: {card})")
+
+    # ---- 13. the fused ADMM kernel at every fused-route sweep shape -------------------
+    from jstsp19_torch.kernels.build import library_path
+
+    ptxas = _ptxas_report(library_path("admm_fused").with_suffix(".log").read_text())
+    for label, changes in SWEEP_SHAPES:
+        pc13 = PointConfig(methods=("proposed", "proposed_angles"), svt_method="fused", **changes)
+        prob = proposed_problem(prng.realization_generators(13, 0, dev), pc13, NOISE_VAR_0DB, B_CHECK)
+        args = [prob[k] for k in ("subY", "Omega", "A", "B", "tau_Y", "tau_S", "rho")]
+        _, N13, M13 = args[0].shape
+        Gr13, K13 = args[2].shape[-1], args[3].shape[-2]
+        plan = admm_fused.plan(N13, M13, Gr13, K13)
+        inst = "ILi32ELi32ELi1E" if (N13, Gr13) == (32, 32) else "ILi0ELi0ELi0E"  # fused_admm_kernel<NT, GT, RG>
+        line = next((v for k, v in ptxas.items() if inst in k), "not found")
+        print(f"[13] {label}: N={N13} M={M13} Gr={Gr13} K={K13}: plan tile {plan.tw}, {plan.blocks_per_sm} block(s) "
+              f"per SM, {plan.smem_bytes} B shared; ptxas: {line}")
+        for rank in (None, prob["rank"]):
+            S_k, Y_k = fused_tracked_admm(*args, Imax=IMAX_CHECK, support_rank=rank)
+            S_p, _ = fused_tracked_admm_plain(*args, Imax=IMAX_CHECK, support_rank=rank)
+            torch.cuda.synchronize()
+            err, scale = float((S_k - S_p).abs().max()), float(S_p.abs().max())
+            finite = bool(torch.isfinite(torch.view_as_real(Y_k)).all())
+            ok = err <= 2e-4 * scale and finite
+            max_abs_err = max(max_abs_err, err)
+            print(f"[13]   support={'rank' if rank is not None else 'none'}: max|dS|={err:.3e} "
+                  f"<= 2e-4*max|S|={2e-4 * scale:.3e}: {err <= 2e-4 * scale}; Y finite: {finite}")
+            if not ok:
+                raise SystemExit(f"[13] {label}: the kernel disagrees with its plain version")
+    kernels[0]["max_abs_err"] = max_abs_err
+
+    # ---- 14. the fused ADMM kernel timed at four batch sizes and shapes ---------------
+    for label, changes, batch in (("canonical", {}, 1), ("canonical", {}, 132), ("canonical", {}, B_MAIN),
+                                  ("errorVSnt Nt=12 (M=420, K=48)", dict(Nt=12, Gt=12, beamformer="fft"), B_MAIN)):
+        pc14 = PointConfig(methods=("proposed",), svt_method="fused", **changes)
+        prob = proposed_problem(prng.realization_generators(0, 0, dev), pc14, NOISE_VAR_0DB, batch)
+        args = [prob[k] for k in ("subY", "Omega", "A", "B", "tau_Y", "tau_S", "rho")]
+        Bt, N14, M14 = args[0].shape
+        Gr14, K14 = args[2].shape[-1], args[3].shape[-2]
+        t, _ = cuda_event_times(lambda r: fused_tracked_admm(*args, Imax=IMAX_MAIN), REPS)
+        t = sorted(1e3 * x for x in t)
+        flops = _admm_flops(Bt, N14, M14, Gr14, K14, IMAX_MAIN)
+        bound = _bound(_nbytes(*args) + Bt * (Gr14 * K14 + N14 * M14) * 8, flops)
+        print(f"[14] {label} B={Bt}, Imax={IMAX_MAIN}: best {t[0]:.3f} ms, median {t[len(t) // 2]:.3f} ms, "
+              f"spread {t[-1] - t[0]:.3f} ms over {REPS} reps; bound {bound[0]:.3f} ms ({bound[1]}, "
+              f"{flops / 1e9:.3f} GFLOP), {100 * bound[0] / t[0]:.1f}% of it (card: {card})")
 
     kernels.append({
         "name": "fwht",

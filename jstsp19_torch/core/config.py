@@ -77,6 +77,17 @@ def snr_db_to_noise_var(snr_db) -> torch.Tensor:
     return (10.0 ** (-snr / 10.0)).to(REAL_DTYPE)
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the one named, else the card.
+    Without a card and without a name it raises rather than run on the CPU;
+    the CPU is taken only when asked for with ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device; pass device="cpu" to run on the CPU')
+    return torch.device("cuda")
+
+
 def use_full_fp32() -> None:
     """Keep every float32 product on the card in full float32: PyTorch lets
     cuDNN use TF32 by default, and either flag may have been flipped by the

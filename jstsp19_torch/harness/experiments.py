@@ -4,7 +4,7 @@
 Each entry reproduces one top-level ``plot_*.m`` script's configuration and
 produces the same curve data (JSON instead of ``.fig``), with the JAX
 recipes' sweep values, noise constants and method lists.  Recipes take
-``device=`` where the JAX ones take ``mesh=``.  The specialized recipes
+``device=`` where the JAX ones take ``mesh=``: the card unless named.  The specialized recipes
 (rate, capacity, energy efficiency, rank, NYU, ...) are not ported yet
 (ROADMAP.md Queue 1, item 5).
 """
@@ -47,7 +47,7 @@ _NV_FRAMELEN_NT_RATE = _nv(15)
 
 
 @_register("error_vs_snr")
-def error_vs_snr(n_mc=8, seed=0, device="cpu", methods=None, **kw):
+def error_vs_snr(n_mc=8, seed=0, device=None, methods=None, **kw):
     """``plot_errorVSsnr.m``: canonical SNR sweep −15:3:15 dB."""
     base = PointConfig(methods=tuple(methods or ALL_METHODS), **kw)
     return run_sweep(
@@ -57,7 +57,7 @@ def error_vs_snr(n_mc=8, seed=0, device="cpu", methods=None, **kw):
 
 
 @_register("error_vs_snr_quirks")
-def error_vs_snr_quirks(n_mc=64, seed=0, device="cpu", methods=None, **kw):
+def error_vs_snr_quirks(n_mc=64, seed=0, device=None, methods=None, **kw):
     """``plot_errorVSsnr.m`` under the reference-quirks channel ensemble
     (``channel_quirks=True``, the ensemble of the committed reference
     artifacts; PARITY.md)."""
@@ -69,7 +69,7 @@ def error_vs_snr_quirks(n_mc=64, seed=0, device="cpu", methods=None, **kw):
 
 
 @_register("error_vs_framelength")
-def error_vs_framelength(n_mc=8, seed=0, device="cpu", **kw):
+def error_vs_framelength(n_mc=8, seed=0, device=None, **kw):
     """``plot_errorVSframelength.m``: T ∈ {5,15,25,35}, Nt=8, FFT combiner,
     numOfnz=50, noise variance 10^(-15/10)."""
     return run_sweep(
@@ -81,7 +81,7 @@ def error_vs_framelength(n_mc=8, seed=0, device="cpu", **kw):
 
 
 @_register("error_vs_paths")
-def error_vs_paths(n_mc=8, seed=0, device="cpu", **kw):
+def error_vs_paths(n_mc=8, seed=0, device=None, **kw):
     """``plot_errorVSpaths.m``: rays ∈ {1,3,6,9,12}; noise variance 10^(-5/10)."""
     return run_sweep(
         "error_vs_paths", "n_rays", [1, 3, 6, 9, 12],
@@ -91,7 +91,7 @@ def error_vs_paths(n_mc=8, seed=0, device="cpu", **kw):
 
 
 @_register("error_vs_delays")
-def error_vs_delays(n_mc=8, seed=0, device="cpu", **kw):
+def error_vs_delays(n_mc=8, seed=0, device=None, **kw):
     """``plot_errorVSdelays.m``: L ∈ {2,4,6,8,10} with T = 5·index,
     numOfnz=50; noise variance 10^(-5/10)."""
     Ls = [2, 4, 6, 8, 10]
@@ -104,7 +104,7 @@ def error_vs_delays(n_mc=8, seed=0, device="cpu", **kw):
 
 
 @_register("error_vs_nt")
-def error_vs_nt(n_mc=8, seed=0, device="cpu", **kw):
+def error_vs_nt(n_mc=8, seed=0, device=None, **kw):
     """``plot_errorVSnt.m``: Nt ∈ {4,6,8,12,16} with the per-Nt T table,
     numOfnz=50, FFT combiner; noise variance 10^(-15/10)."""
     T_table = {4: 35, 6: 35, 8: 35, 12: 35, 16: 25}
@@ -117,7 +117,7 @@ def error_vs_nt(n_mc=8, seed=0, device="cpu", **kw):
 
 
 @_register("error_vs_nrf")
-def error_vs_nrf(n_mc=8, seed=0, device="cpu", **kw):
+def error_vs_nrf(n_mc=8, seed=0, device=None, **kw):
     """``plot_errorVSnrf.m``: RF chains Mr ∈ {4,8,12,16}, T=5; noise
     variance 10^(-5/10)."""
     return run_sweep(

@@ -19,6 +19,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from jstsp19_torch.core.config import resolve_device
 from jstsp19_torch.kernels.wht import fwht_plain
 from jstsp19_torch.ops.fourier import FWHTOp
 from jstsp19_torch.ops.structured import SubsetOp
@@ -47,8 +48,10 @@ def hadamard_cs_problem(seed: int = SEED, batch: int = BATCH, n: int = N, m: int
 
 def hadamard_cs_torch(prob: Dict[str, np.ndarray], device=None, use_kernel: bool = True):
     """The port's (prior, likelihood, op) for a batch of problems made with
-    the default ε, on ``device``: the measurement operator goes through the
-    FWHT kernel unless ``use_kernel`` is False."""
+    the default ε, on ``device`` (the card unless named; without one it
+    raises unless ``device="cpu"``): the measurement operator goes through
+    the FWHT kernel unless ``use_kernel`` is False."""
+    device = resolve_device(device)
     y = torch.from_numpy(prob["y"]).to(device)
     wvar = torch.from_numpy(prob["wvar"]).to(device)[:, None]
     op = SubsetOp(FWHTOp(prob["x"].shape[-1], use_kernel=use_kernel), torch.from_numpy(prob["idx"]).to(device))

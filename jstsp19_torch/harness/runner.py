@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from jstsp19_torch.core import prng
+from jstsp19_torch.core.config import resolve_device
 from jstsp19_torch.harness.pipeline import PointConfig, fused_point_errors, realization_errors
 
 FUSED_METHODS = ("proposed", "proposed_angles")
@@ -62,10 +63,11 @@ def run_point(
     n_mc: int,
     seed: int = 0,
     sweep_index: int = 0,
-    device="cpu",
+    device=None,
 ) -> Dict[str, np.ndarray]:
     """Evaluate one sweep point over ``n_mc`` realizations on ``device``
-    (the CPU unless named); returns {method: (n_mc,) NMSE}.
+    (the card unless named; without one it raises unless ``device="cpu"``);
+    returns {method: (n_mc,) NMSE}.
 
     ``svt_method='fused'`` (the JAX package's 'pallas') solves the proposed
     methods on the fused kernel and the others on 'tracked'; it falls back
@@ -73,7 +75,7 @@ def run_point(
     the fused kernel has no branch.  Every call draws from fresh generators
     of (seed, sweep_index), so both halves see the same realizations.
     """
-    device = torch.device(device)
+    device = resolve_device(device)
 
     def gens():
         return prng.realization_generators(seed, sweep_index, device)
@@ -122,7 +124,7 @@ def run_sweep(
     noise_fn: Callable[[object], float],
     n_mc: int = 8,
     seed: int = 0,
-    device="cpu",
+    device=None,
     verbose: bool = True,
     checkpoint_dir: Optional[str] = None,
     checkpoint_backend: str = "json",
@@ -136,6 +138,7 @@ def run_sweep(
     per-realization errors when every point ran fresh.
     """
     _check_backend(checkpoint_backend)
+    device = resolve_device(device)
     checkpoint_dir = checkpoint_dir or _DEFAULT_CHECKPOINT["dir"]
     t0 = time.time()
     curves: Dict[str, List[float]] = {}

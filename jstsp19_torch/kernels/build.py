@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 import torch
 
@@ -45,30 +45,35 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-def library_path(name: str) -> pathlib.Path:
+def library_path(name: str, extra_flags: Tuple[str, ...] = ()) -> pathlib.Path:
+    """The library of ``csrc/<name>.cu``, named by a hash of the source and
+    the flags: a build with ``extra_flags`` (say, ``-DADMM_PHASES``) gets a
+    name of its own beside the normal one."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join(NVCC_FLAGS + tuple(extra_flags))
+    digest = hashlib.sha256(src.read_bytes() + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build_all(names: Iterable[str]) -> Dict[str, float]:
+def build_all(names: Iterable[str], extra_flags: Tuple[str, ...] = ()) -> Dict[str, float]:
     """Compile each ``csrc/<name>.cu`` whose library (same hash) is missing,
-    one ``nvcc`` per source, all started together.  Returns the seconds from
-    the common start until each build ended (0.0 where the library existed).
-    The compiler's report (``-Xptxas -v``: registers, shared memory, spills)
-    is kept beside each library as ``.log``."""
+    one ``nvcc`` per source, all started together, with ``NVCC_FLAGS`` and
+    ``extra_flags``.  Returns the seconds from the common start until each
+    build ended (0.0 where the library existed).  The compiler's report
+    (``-Xptxas -v``: registers, shared memory, spills) is kept beside each
+    library as ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.time()
     running = {}
     seconds = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, extra_flags)
         if out.exists():
             seconds[name] = 0.0
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", tmp, str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         running[name] = (proc, tmp, out)
     failed = []
@@ -91,16 +96,17 @@ def build_all(names: Iterable[str]) -> Dict[str, float]:
     return seconds
 
 
-def build(name: str) -> pathlib.Path:
+def build(name: str, extra_flags: Tuple[str, ...] = ()) -> pathlib.Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same hash exists."""
-    build_all([name])
-    return library_path(name)
+    build_all([name], extra_flags)
+    return library_path(name, extra_flags)
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``lib<name>``; one handle per process."""
-    return ctypes.CDLL(str(build(name)))
+def load(name: str, extra_flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build (if needed) and load ``lib<name>``; one handle per process and
+    set of flags."""
+    return ctypes.CDLL(str(build(name, extra_flags)))
 
 
 def check_tensor(name: str, x: torch.Tensor, shape, dtype, device) -> None:

@@ -19,6 +19,7 @@ from jstsp19_torch.harness.pipeline import (
     realization_errors,
 )
 from jstsp19_torch.core.metrics import clamped_nmse
+from jstsp19_torch.kernels import admm_fused
 from jstsp19_torch.kernels.admm_fused import fused_tracked_admm, fused_tracked_admm_plain
 from jstsp19_torch.kernels.dictionary import dict_correlation, dict_correlation_plain
 from jstsp19_torch.kernels.softthresh import fused_soft_threshold, fused_soft_threshold_plain
@@ -31,6 +32,10 @@ pytestmark = pytest.mark.cuda
 
 Bt, N, M, Gr, K = 8, 32, 140, 32, 16
 IMAX = 25
+# (M, K) of the 12 distinct shapes the fused route reaches in the seven
+# sweep recipes (N = Gr = 32; M = T*Nt, K = Gt*L)
+SWEEP_MK = ((140, 16), (40, 32), (120, 32), (200, 32), (280, 32), (40, 16), (60, 24), (80, 32),
+            (100, 40), (210, 24), (420, 48), (400, 64))
 
 
 @pytest.fixture
@@ -84,10 +89,17 @@ def test_kernel_matches_plain(cuda, with_rank):
     assert Y.shape == (Bt, N, M) and bool(torch.isfinite(torch.view_as_real(Y)).all())
 
 
-@pytest.mark.parametrize("shape,track_rounds", [((4, 16, 40, 16, 8), 2), ((3, 8, 8, 4, 4), 1)])
+@pytest.mark.parametrize("shape,track_rounds", [
+    ((4, 16, 40, 16, 8), 2), ((3, 8, 8, 4, 4), 1), ((2, 6, 10, 5, 3), 1), ((2, 40, 90, 36, 12), 1),
+    ((2, 66, 80, 34, 6), 1), ((2, 66, 200, 32, 16), 2),
+    *(((4, 32, m, 32, k), 1) for m, k in SWEEP_MK),
+])
 def test_kernel_matches_plain_at_other_sizes(cuda, shape, track_rounds):
     """The kernel takes its sizes at run time: smaller problems, square
-    N = M, more rounds per iteration; same tolerance as at the canonical size."""
+    N = M, more rounds per iteration, odd sizes, N > 32 (two and three
+    groups of 32 rows), all of them on the instance with sizes at run time,
+    and every fused-route sweep shape, several column tiles among them; same
+    tolerance as at the canonical size."""
     b, n, m, gr, k = shape
     g = torch.Generator(device=cuda).manual_seed(5)
 
@@ -111,6 +123,42 @@ def test_kernel_is_deterministic(cuda):
     S1, Y1 = fused_tracked_admm(*args, Imax=IMAX)
     S2, Y2 = fused_tracked_admm(*args, Imax=IMAX)
     assert torch.equal(S1, S2) and torch.equal(Y1, Y2)
+
+
+@pytest.mark.parametrize("batch", [1, 133])
+def test_kernel_at_one_block_and_over_a_wave(cuda, batch):
+    """One realization, and 133 (one block more than the card's 132 SMs):
+    the batch agrees with the plain version, two runs are bit-equal, and the
+    first and last realizations agree with each solved alone (within 1e-5:
+    the wrapper's batched A^H A and B B^H may round differently)."""
+    g = torch.Generator(device=cuda).manual_seed(batch)
+
+    def c(*s):
+        return torch.randn(*s, generator=g, device=cuda, dtype=torch.complex64)
+
+    Omega = (torch.rand(batch, N, M, generator=g, device=cuda) < 0.5).float()
+    subY = c(batch, N, M) * Omega
+    args = (subY, Omega, c(batch, N, Gr) / N**0.5, c(batch, K, M) / K**0.5, *admm_hyperparams(subY, c(batch, Gr, K)))
+    S, Y = fused_tracked_admm(*args, Imax=IMAX)
+    S_ref, _ = fused_tracked_admm_plain(*args, Imax=IMAX)
+    assert float((S - S_ref).abs().max()) <= 2e-4 * float(S_ref.abs().max())
+    S2, Y2 = fused_tracked_admm(*args, Imax=IMAX)
+    assert torch.equal(S, S2) and torch.equal(Y, Y2)
+    for i in (0, batch - 1):
+        S_i, _ = fused_tracked_admm(*(a[i:i + 1] for a in args), Imax=IMAX)
+        assert float((S_i[0] - S[i]).abs().max()) <= 1e-5 * float(S[i].abs().max())
+
+
+def test_plan_matches_the_kernel_layout(cuda):
+    """The plan's shared-memory bytes are the kernel's own Layout, and each
+    kernel instance's registers leave room for two blocks an SM."""
+    for m, k in SWEEP_MK:
+        assert admm_fused.smem_bytes(N, Gr, k) == 4 * admm_fused._layout_floats(N, Gr, k)
+    for n, gr, k in ((40, 36, 12), (66, 32, 16)):
+        assert admm_fused.smem_bytes(n, gr, k) == 4 * admm_fused._layout_floats(n, gr, k)
+    for n, gr in ((32, 32), (66, 32)):  # the two instances
+        regs = admm_fused._library().fused_tracked_admm_registers(n, gr)
+        assert 0 < regs and 2 * admm_fused.THREADS * regs <= 65536
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):

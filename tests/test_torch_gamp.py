@@ -137,7 +137,7 @@ def _hadamard(seed=0, n=256):
     """Two partial-Hadamard problems of harness/hadamard_cs.py, each with
     its own row set."""
     prob = hcs.hadamard_cs_problem(seed=seed, batch=2, n=n)
-    pprior, plike, pop = hcs.hadamard_cs_torch(prob)
+    pprior, plike, pop = hcs.hadamard_cs_torch(prob, "cpu")
     jprior = jestim.SparsePrior(jestim.AwgnPrior(0.0, 1.0 / hcs.EPS), hcs.EPS)
     jl = [jestim.CAwgnLikelihood(jnp.asarray(prob["y"][b]), jnp.float32(prob["wvar"][b])) for b in range(2)]
     jops = [JSubsetOp(JFWHTOp(n), tuple(int(i) for i in prob["idx"][b])) for b in range(2)]

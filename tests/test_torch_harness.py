@@ -143,6 +143,27 @@ def test_cli_needs_cuda_without_cpu_flag(tmp_path):
     assert not (tmp_path / "error_vs_nrf.json").exists()
 
 
+def test_entry_points_need_a_device_name_without_cuda(monkeypatch):
+    """run_point, run_sweep, every recipe and hadamard_cs_torch run on the
+    card unless named; without a card and without a name they raise, naming
+    device="cpu", before any work is done on the CPU."""
+    from jstsp19_torch.harness import hadamard_cs as hcs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pc = pipeline.PointConfig(methods=("ls",), Imax=2)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        runner.run_point(pc, 1.0, 1)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        runner.run_sweep("x", "s", [0], point_fn=lambda v: pc, noise_fn=lambda v: 1.0, n_mc=1, verbose=False)
+    for name, recipe in sorted(EXPERIMENTS.items()):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            recipe(n_mc=1)
+    prob = hcs.hadamard_cs_problem(batch=1, n=16)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        hcs.hadamard_cs_torch(prob)
+    assert hcs.hadamard_cs_torch(prob, "cpu")[1].y.device.type == "cpu"
+
+
 def test_error_vs_nrf_slice_matches_jax_reference(tmp_path):
     """``python -m jstsp19_torch run error_vs_nrf --cpu --n-mc 8 --no-plot``
     in-process: the JSON has the JAX artifact's schema, every curve value is

@@ -19,7 +19,13 @@ Bt, N, M, Gr, K = 2, 32, 140, 32, 16
 IMAX = 25
 
 
-def _problem(seed):
+# (M, K) of the 12 distinct shapes the fused route reaches in the seven
+# sweep recipes (N = Gr = 32)
+SWEEP_MK = ((140, 16), (40, 32), (120, 32), (200, 32), (280, 32), (40, 16), (60, 24), (80, 32),
+            (100, 40), (210, 24), (420, 48), (400, 64))
+
+
+def _problem(seed, M=M, K=K):
     rng = np.random.default_rng(seed)
 
     def c(*s):
@@ -34,12 +40,8 @@ def _problem(seed):
     return subY, Omega, A, B, tau_Y, tau_S, rho
 
 
-@pytest.mark.parametrize("with_rank", [False, True])
-def test_plain_version_matches_jax_pallas_interpret(with_rank):
-    """max|ΔS| < 2e-4·max|S| at Imax=25, the tolerance of
-    tests/test_fused_admm.py:51-53 (same fp32 iteration; the Pallas kernel
-    rotates the Gram T, the port the P-form, with other rounding)."""
-    args = _problem(int(with_rank))
+def _check_against_pallas_interpret(with_rank, M=M, K=K):
+    args = _problem(int(with_rank), M, K)
     rank = None
     if with_rank:
         rng = np.random.default_rng(7)
@@ -54,6 +56,44 @@ def test_plain_version_matches_jax_pallas_interpret(with_rank):
     assert np.max(np.abs(S.numpy() - S_j)) < 2e-4 * np.max(np.abs(S_j))
     assert Y.shape == (Bt, N, M) and bool(torch.isfinite(torch.view_as_real(Y)).all())
     np.testing.assert_allclose(Y.numpy(), np.asarray(Y_j), atol=2e-4 * np.abs(np.asarray(Y_j)).max())
+
+
+@pytest.mark.parametrize("with_rank", [False, True])
+def test_plain_version_matches_jax_pallas_interpret(with_rank):
+    """max|ΔS| < 2e-4·max|S| at Imax=25, the tolerance of
+    tests/test_fused_admm.py:51-53 (same fp32 iteration; the Pallas kernel
+    rotates the Gram T, the port the P-form, with other rounding)."""
+    _check_against_pallas_interpret(with_rank)
+
+
+@pytest.mark.parametrize("with_rank", [False, True])
+@pytest.mark.parametrize("mk", [(200, 32), (420, 48), (400, 64)])
+def test_plain_version_matches_jax_pallas_interpret_at_wide_sweep_shapes(mk, with_rank):
+    """The same check at three of the sweep shapes whose operands exceed one
+    block's shared memory when kept whole (errorVSframelength T=25,
+    errorVSnt Nt=12 and Nt=16): the card's kernel streams them in tiles,
+    and its plain version is what it is held to."""
+    _check_against_pallas_interpret(with_rank, *mk)
+
+
+def test_plan_fits_every_sweep_shape():
+    """The kernel's plan fits each fused-route sweep shape in one block's
+    shared memory, puts two blocks on an SM at the canonical shape, takes
+    N above 32 (groups of 32 rows) while its buffers fit, and raises with
+    the byte count for operands too large for a block."""
+    for m, k in SWEEP_MK:
+        pl = admm_fused.plan(N, m, Gr, k)
+        assert pl.smem_bytes <= build.SMEM_LIMIT_BYTES and pl.tw == admm_fused.TILE_WIDTH
+        assert pl.blocks_per_sm * (pl.smem_bytes + admm_fused.BLOCK_RESERVED_BYTES) <= admm_fused.SM_SMEM_BYTES
+        assert pl.smem_bytes == 4 * admm_fused._layout_floats(N, Gr, k) and pl.row_groups == 1
+    assert admm_fused.plan(N, M, Gr, K).blocks_per_sm == 2
+    assert admm_fused.plan(40, 90, 36, 12).row_groups == 2
+    wide = admm_fused.plan(66, 200, 32, 16)
+    assert wide.row_groups == 3 and wide.blocks_per_sm == 1 and wide.smem_bytes <= build.SMEM_LIMIT_BYTES
+    with pytest.raises(ValueError, match="B of shared memory"):
+        admm_fused.plan(64, 4096, 64, 128)
+    with pytest.raises(ValueError, match="B of shared memory"):
+        admm_fused.plan(70, 200, 32, 16)
 
 
 def test_wrapper_dispatch_and_checks():
