@@ -36,12 +36,16 @@ Phases (any failure ends the run with a non-zero exit code and no result):
 8. one errorVSnrf point (Mr=16, T=5, B=256, Imax=100) on the unfused route
    with the kernels on and off: per-realization NMSE within rtol 2e-3,
    atol 2e-4; both timed with CUDA events (5 reps after a warm-up);
-9. the build time and compiler report of ``fwht.cu`` (built in phase 1);
-10. the FWHT kernel against its plain version at n in 2, 64, 4096, 32768,
-    65536 and 2^20, float32 and complex64, natural and sequency order,
-    forward and inverse: max|Δ| = 0, or at most 1e-6·max|ref|; its time per
-    call at (32, 65536) and (256, 4096) against the plain version and against
-    one ``torch.matmul`` with the dense sequency Walsh matrix;
+9. the build time of ``fwht.cu`` (built in phase 1) and the compiler's
+   line (registers, stack, spills) of each of its kernel instances;
+10. the FWHT kernel against its plain version at every boundary of
+    ``kernels/wht.py::plan_fwht`` (n in 2, 64, 4096 and 2^14 to 2^20, so the
+    row, cluster and split paths of float32 and complex64), natural and
+    sequency order, forward and inverse: bit-equal (max|Δ| = 0); its time
+    per call at (32, 65536) and (256, 4096) against the plain version and
+    against one ``torch.matmul`` with the dense sequency Walsh matrix; its
+    device time a call under ``torch.profiler`` and the device kernels a
+    call at (32, 65536) forward and inverse, (256, 4096) and (4, 2^20);
 11. the third slice, partial Walsh–Hadamard compressive sensing
     (``harness/hadamard_cs.py``: B=32, n=65536, m=16384, ε=0.05, 40 dB)
     through ``gamp_est`` (``GampOptions()``) and the lean ``gamp`` (100
@@ -89,7 +93,7 @@ NV_5DB = 10 ** (-0.5)
 TIMED_CALLS = 200
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth, published
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
-FWHT_NS = (2, 64, 4096, 32768, 65536, 1 << 20)
+FWHT_NS = (2, 64, 4096, *(1 << k for k in range(14, 21)))  # every boundary of plan_fwht
 # the fused route's 12 distinct (M, K) shapes in the seven recipes, each from
 # one sweep point that reaches it (PointConfig fields; N = Gr = 32)
 SWEEP_SHAPES = (
@@ -227,7 +231,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke test runs only on the GPU", file=sys.stderr)
         return 1
 
-    from jstsp19_torch.bench import NOISE_VAR_0DB, REPS, card_line, cuda_event_times, time_route
+    from jstsp19_torch.bench import NOISE_VAR_0DB, REPS, card_line, cuda_event_times, device_ms, time_route
     from jstsp19_torch.core import prng
     from jstsp19_torch.core.metrics import clamped_nmse
     from jstsp19_torch.harness.pipeline import PointConfig, fused_point_errors, proposed_problem
@@ -235,7 +239,7 @@ def main() -> int:
     from jstsp19_torch.harness import hadamard_cs as hcs
     from jstsp19_torch.kernels import admm_fused, dictionary, softthresh, wht
     from jstsp19_torch.kernels.admm_fused import fused_tracked_admm, fused_tracked_admm_plain
-    from jstsp19_torch.kernels.build import KERNELS, build_all
+    from jstsp19_torch.kernels.build import KERNELS, build_all, library_path
     from jstsp19_torch.kernels.dictionary import dict_correlation, dict_correlation_plain
     from jstsp19_torch.kernels.softthresh import fused_soft_threshold, fused_soft_threshold_plain
     from jstsp19_torch.kernels.wht import fwht_kernel, fwht_plain, ifwht_plain
@@ -499,7 +503,9 @@ def main() -> int:
     }]
 
     # ---- 9. the third slice's kernel: build report ------------------------------------
-    _print_build("[9]", "fwht", build_seconds)
+    print(f"[9] built {library_path('fwht').name} in {build_seconds['fwht']:.3f} s (all kernels built together)")
+    for name, line in _ptxas_report(library_path("fwht").with_suffix(".log").read_text()).items():
+        print(f"[9] {name}: {line}")
 
     # ---- 10. the FWHT kernel against its plain version ---------------------------------
     fwht_err = 0.0
@@ -507,23 +513,34 @@ def main() -> int:
         rows = max(2, min(256, (1 << 21) // n))
         for dtype in (torch.float32, torch.complex64):
             x = torch.randn(rows, n, generator=g, device=dev, dtype=dtype)
+            plan = wht.plan_fwht(n, x.element_size())
             for ordering in ("natural", "sequency"):
                 for inverse in (False, True):
                     out_k = fwht_kernel(x, ordering, inverse=inverse)
                     ref = (ifwht_plain if inverse else fwht_plain)(x, ordering)
                     torch.cuda.synchronize()
-                    err, scale = float((out_k - ref).abs().max()), float(ref.abs().max())
+                    err = float((out_k - ref).abs().max())
                     fwht_err = max(fwht_err, err)
-                    how = "max|d| = 0" if err == 0 else f"max|d| <= 1e-6*max|ref| = {1e-6 * scale:.3e}"
-                    ok = err <= 1e-6 * scale
-                    print(f"[10] fwht ({rows}, {n}) {str(dtype)[6:]} {ordering} {'inverse' if inverse else 'forward'}: "
-                          f"max|d|={err:.3e}; {how}: {ok}")
+                    ok = torch.equal(out_k, ref)
+                    print(f"[10] fwht ({rows}, {n}) {str(dtype)[6:]} {ordering} {'inverse' if inverse else 'forward'} "
+                          f"({plan.path}, cluster {plan.cluster}, {plan.threads} threads): max|d|={err:.3e}; "
+                          f"bit-equal: {ok}")
                     if not ok:
-                        raise SystemExit("[10] the FWHT kernel disagrees with its plain version")
+                        raise SystemExit("[10] the FWHT kernel is not bit-equal to its plain version")
     x_main = torch.randn(hcs.BATCH, hcs.N, generator=g, device=dev)
     fwht_ms = _per_call_ms(lambda: fwht_kernel(x_main))
     fwht_plain_ms = _per_call_ms(lambda: fwht_plain(x_main))
     fwht_bound = _bound(_nbytes(x_main, x_main), x_main.numel() * math.log2(hcs.N))
+    fwht_device = {}
+    for rows, n, inverse in ((hcs.BATCH, hcs.N, False), (hcs.BATCH, hcs.N, True), (256, 4096, False),
+                             (4, 1 << 20, False)):
+        x = x_main if n == hcs.N else torch.randn(rows, n, generator=g, device=dev)
+        d_ms, launched = device_ms(lambda: fwht_kernel(x, inverse=inverse))
+        fwht_device[(rows, n, inverse)] = d_ms
+        bound = _bound(_nbytes(x, x), x.numel() * math.log2(n))
+        print(f"[10] device time a call, float32 sequency {'inverse' if inverse else 'forward'} ({rows}, {n}), "
+              f"{wht.plan_fwht(n, 4).path} path: {d_ms * 1e3:.2f} us in {launched:.0f} kernel(s) a call; bound "
+              f"{bound[0] * 1e3:.2f} us ({bound[1]}), {100 * bound[0] / d_ms:.1f}% of it (card: {card})")
     x_small = torch.randn(256, 4096, generator=g, device=dev)
     Wt = _walsh_t(4096, dev)
     small = [_per_call_ms(f) for f in (lambda: fwht_kernel(x_small), lambda: fwht_plain(x_small),
@@ -597,8 +614,6 @@ def main() -> int:
                   f"(card: {card})")
 
     # ---- 13. the fused ADMM kernel at every fused-route sweep shape -------------------
-    from jstsp19_torch.kernels.build import library_path
-
     ptxas = _ptxas_report(library_path("admm_fused").with_suffix(".log").read_text())
     for label, changes in SWEEP_SHAPES:
         pc13 = PointConfig(methods=("proposed", "proposed_angles"), svt_method="fused", **changes)
@@ -653,6 +668,7 @@ def main() -> int:
         "bound_ms": fwht_bound[0],
         "bound_by": fwht_bound[1],
         "library_ms": fwht_library_ms,
+        "device_ms": fwht_device[(hcs.BATCH, hcs.N, False)],  # torch.profiler, without the wrapper's host cost
     })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -41,6 +41,24 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
+def device_ms(fn: Callable[[], Any], calls: int = 100, match: str = "fwht") -> Tuple[float, float]:
+    """(device milliseconds a call, device kernels a call) of the kernels
+    whose name holds ``match``, summed under ``torch.profiler`` over
+    ``calls`` calls of ``fn()`` after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA") and match in e.key]
+    return (sum(e.self_device_time_total for e in kern) / 1e3 / calls,
+            sum(e.count for e in kern) / calls)
+
+
 def run_route(svt_method: str, batch: int, seed: int, device="cuda") -> torch.Tensor:
     """One batch of the canonical point on one route; returns (batch,) NMSE."""
     pc = PointConfig(methods=("proposed",), svt_method=svt_method)

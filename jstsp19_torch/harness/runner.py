@@ -21,6 +21,7 @@ import torch
 from jstsp19_torch.core import prng
 from jstsp19_torch.core.config import resolve_device
 from jstsp19_torch.harness.pipeline import PointConfig, fused_point_errors, realization_errors
+from jstsp19_torch.kernels import admm_fused
 
 FUSED_METHODS = ("proposed", "proposed_angles")
 
@@ -57,6 +58,17 @@ def _jsonable(v) -> bool:
         return False
 
 
+def svt_route(pc: PointConfig) -> str:
+    """The SVT method :func:`run_point` runs ``pc`` with: 'tracked' in place
+    of 'fused' where the fused kernel cannot take the point's shapes
+    (N = Mr_e, M = T·Nt, Gr, K = L·Gt, as ``fused_point_errors`` builds
+    them): N > M, or operands its shared memory cannot hold."""
+    N, M, K = pc.Mr_e, pc.T * pc.Nt, pc.L * pc.Gt
+    if pc.svt_method == "fused" and (N > M or not admm_fused.fits(N, M, pc.Gr, K)):
+        return "tracked"
+    return pc.svt_method
+
+
 def run_point(
     pc: PointConfig,
     noise_var: float,
@@ -72,16 +84,18 @@ def run_point(
     ``svt_method='fused'`` (the JAX package's 'pallas') solves the proposed
     methods on the fused kernel and the others on 'tracked'; it falls back
     to 'tracked' for all of them when N > M (``Mr_e > T·Nt``), for which
-    the fused kernel has no branch.  Every call draws from fresh generators
-    of (seed, sweep_index), so both halves see the same realizations.
+    the fused kernel has no branch, and when the kernel's shared memory
+    cannot hold the operands it keeps whole (``admm_fused.fits``; say,
+    ``Nr = Mr_e = Gr = 64``).  Both are decided from the shapes, before any
+    launch (:func:`svt_route`).  Every call draws from fresh generators of
+    (seed, sweep_index), so both halves see the same realizations.
     """
     device = resolve_device(device)
 
     def gens():
         return prng.realization_generators(seed, sweep_index, device)
 
-    if pc.svt_method == "fused" and pc.Mr_e > pc.T * pc.Nt:
-        pc = dataclasses.replace(pc, svt_method="tracked")
+    pc = dataclasses.replace(pc, svt_method=svt_route(pc))
     if pc.svt_method == "fused":
         out = {}
         fused = tuple(m for m in FUSED_METHODS if m in pc.methods)

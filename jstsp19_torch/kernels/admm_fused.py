@@ -86,12 +86,19 @@ def _layout_floats(N: int, Gr: int, K: int) -> int:
     return total + _round4(3 * (N // 2)) + _round4(N) + _round4(2 * THREADS // 32)
 
 
+def fits(N: int, M: int, Gr: int, K: int) -> bool:
+    """Whether one block of the kernel holds the operands it keeps whole (the
+    N x N, Gr x Gr, Gr x K and K x K ones) in shared memory: the shapes
+    :func:`plan` accepts.  Pure Python, from the same layout."""
+    return 4 * _layout_floats(N, Gr, K) <= SMEM_LIMIT_BYTES
+
+
 def plan(N: int, M: int, Gr: int, K: int) -> Plan:
     """Two blocks to an SM where their shared memory fits, else one.  Raises,
     with the bytes, for shapes whose operands kept whole (the N x N, Gr x K
-    and K x K ones) are too large for a block."""
+    and K x K ones) are too large for a block (see :func:`fits`)."""
     smem = 4 * _layout_floats(N, Gr, K)
-    if smem > SMEM_LIMIT_BYTES:
+    if not fits(N, M, Gr, K):
         raise ValueError(
             f"shapes N={N} M={M} Gr={Gr} K={K} need {smem} B of shared memory, "
             f"more than the {SMEM_LIMIT_BYTES} B a block may use"

@@ -4,10 +4,12 @@ Counterpart of ``jstsp19_tpu/kernels/wht.py::pallas_fwht`` (the Pallas TPU
 kernel) and of the XLA butterflies of ``jstsp19_tpu/ops/fourier.py``.  The
 CUDA kernel (``csrc/fwht.cu``) runs the natural-order radix-2 butterflies,
 divides by √n and folds the sequency permutation into its loads or stores;
-float32 rows, or complex64 rows read as interleaved pairs.  Its source note
-says what bounds it and how rows longer than one block's shared memory are
-split.  Unlike ``pallas_fwht``, which casts to float32, a complex input keeps
-its imaginary part, as the JAX package's ``fwht`` does.
+float32 rows, or complex64 rows read as interleaved pairs.  :func:`plan_fwht`
+picks its path by the bytes of a row (one block, a thread-block cluster, or
+a two-pass split) and the wrapper hands the plan to the library; the
+source note says what bounds the kernel and what each path does about it.
+Unlike ``pallas_fwht``, which casts to float32, a complex input keeps its
+imaginary part, as the JAX package's ``fwht`` does.
 
 The plain versions (:func:`fwht_plain`, :func:`ifwht_plain`) are
 ``ops/fourier.py::fwht``/``ifwht`` of the JAX package in torch, with the
@@ -21,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -31,24 +34,78 @@ _MODES = {("natural", False): 0, ("natural", True): 0, ("sequency", False): 1, (
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
+def _library(extra_flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The kernel's library; ``extra_flags`` builds a variant of its own
+    (``("-DFWHT_PHASES",)``: the per-phase clock stamps of
+    ``tools/torch_fwht_phases.py``; ``("-DFWHT_CLUSTER=4",)``: clusters of
+    4 blocks, which the tool compares with CLUSTER)."""
     from jstsp19_torch.kernels.build import load
 
-    lib = load("fwht")
+    lib = load("fwht", tuple(extra_flags))
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.fwht_launch.argtypes = [vp, vp, vp, ll, i, i, i, ctypes.c_float, vp]
+    lib.fwht_launch.argtypes = [vp, vp, vp, ll, i, i, i, ctypes.c_float, i, i, i, vp]
     lib.fwht_launch.restype = i
-    lib.fwht_row_limit.argtypes = [i]
-    lib.fwht_row_limit.restype = ll
-    lib.fwht_max_log2n.argtypes = []
-    lib.fwht_max_log2n.restype = i
+    lib.fwht_cluster_capacity.argtypes = [i, i, i]
+    lib.fwht_cluster_capacity.restype = i
+    lib.fwht_phase_names.restype = ctypes.c_char_p
+    lib.fwht_phase_cycles.argtypes = [vp, i]
+    lib.fwht_phase_cycles.restype = i
     return lib
+
+
+ROW_BYTES = 128 * 1024  # one block holds a row up to this size (kRowBytes in csrc/fwht.cu)
+CLUSTER = 8  # blocks a cluster on the cluster path (kClusterSize)
+MAX_THREADS = 512  # threads of a block (kMaxThreads)
+REG_BYTES = 128  # entries a thread holds in registers: 32 float32 or 16 complex64 (kRegBytes)
+MAX_LOG2N = 24
+PATHS = {"row": 0, "cluster": 1, "split": 2}  # the path codes fwht_launch takes
+CLUSTER_UNPLACEABLE = -1  # fwht_launch's code for a cluster the card cannot place
+
+
+class FwhtPlan(NamedTuple):
+    """How the kernel transforms one row: the path ('row': one block holds
+    the row; 'cluster': a thread-block cluster holds it, 1/cluster a block;
+    'split': two passes through device memory), the cluster size, the
+    threads of a block and its dynamic shared memory in bytes."""
+    path: str
+    cluster: int
+    threads: int
+    smem_bytes: int
 
 
 def _log2(n: int) -> int:
     if n < 1 or n & (n - 1):
         raise ValueError(f"FWHT length must be a power of two, got {n}")
     return n.bit_length() - 1
+
+
+def plan_fwht(n: int, elem_bytes: int) -> FwhtPlan:
+    """The plan of a row of n entries of ``elem_bytes`` (4: float32, 8:
+    complex64).  Up to ROW_BYTES a row, one block holds it; up to
+    CLUSTER x ROW_BYTES, a cluster of CLUSTER blocks, each holding 1/CLUSTER
+    of the row; above, the two-pass split.  A row-path thread holds
+    REG_BYTES of entries, so a block has (its bytes) / REG_BYTES threads, at
+    least one warp and at most MAX_THREADS; a cluster-path thread takes two
+    such units (the kernel's cross-block tiles need exactly (part bytes) /
+    256 threads).  CLUSTER = 8, the largest portable size, is the one size
+    whose parts fit a block for every row up to 1 MB, and it spreads the
+    GAMP slice's (32, 65536) float32 over all the SMs: 256 blocks of 32 KB
+    and 128 threads.  (On an H100, clusters of 2 blocks of 128 KB ran as
+    fast there, and of 4 slower: PERF.md, section 6.)  Pure Python: the
+    wrapper hands the plan to the library."""
+    log2n = _log2(n)
+    if elem_bytes not in (4, 8):
+        raise ValueError(f"elem_bytes is 4 (float32) or 8 (complex64), got {elem_bytes}")
+    if not 1 <= log2n <= MAX_LOG2N:
+        raise ValueError(f"fwht_kernel supports n from 2 to 2^{MAX_LOG2N}, got n = {n}")
+    row = n * elem_bytes
+    if row > CLUSTER * ROW_BYTES:
+        return FwhtPlan("split", 1, MAX_THREADS, 0)
+    cluster = 1 if row <= ROW_BYTES else CLUSTER
+    block_bytes = row // cluster
+    units = block_bytes // REG_BYTES if cluster == 1 else block_bytes // (2 * REG_BYTES)
+    threads = min(MAX_THREADS, max(32, units))
+    return FwhtPlan("row" if cluster == 1 else "cluster", cluster, threads, block_bytes)
 
 
 def _fwht_natural(x: torch.Tensor) -> torch.Tensor:
@@ -125,8 +182,8 @@ def ifwht_plain(y: torch.Tensor, ordering: str = "sequency") -> torch.Tensor:
 
 def fwht_kernel(x: torch.Tensor, ordering: str = "sequency", inverse: bool = False) -> torch.Tensor:
     """The orthonormal FWHT (``inverse=True``: its inverse) along the last
-    axis of x, (..., n) float32 or complex64 with n a power of two.
-    Returns a new tensor."""
+    axis of x, (..., n) float32 or complex64 with n a power of two, on the
+    plan of :func:`plan_fwht`.  Returns a new tensor."""
     if x.device.type == "cpu":
         return (ifwht_plain if inverse else fwht_plain)(x, ordering)
     if x.device.type != "cuda":
@@ -134,24 +191,34 @@ def fwht_kernel(x: torch.Tensor, ordering: str = "sequency", inverse: bool = Fal
     _check_ordering(ordering)
     if x.dtype not in (torch.float32, torch.complex64):
         raise ValueError(f"fwht_kernel takes float32 or complex64, got {x.dtype}")
+    out = _launch(_library(), x, ordering, inverse, plan_fwht(x.shape[-1], x.element_size()))
+    if out.numel():
+        fwht_kernel.launches += 1
+    return out
+
+
+def _launch(lib, x: torch.Tensor, ordering: str, inverse: bool, plan: FwhtPlan) -> torch.Tensor:
+    """Launches ``lib``'s kernel on checked x with ``plan`` (the tools pass
+    the plans of builds with another cluster size); returns the transform."""
     n = x.shape[-1]
     log2n = _log2(n)
-    lib = _library()
-    if log2n < 1 or log2n > lib.fwht_max_log2n():
-        raise ValueError(f"fwht_kernel supports n from 2 to 2^{lib.fwht_max_log2n()}, got n = {n}")
     xc = x.contiguous()
+    if xc.data_ptr() % 16:  # the kernel moves rows in 16-byte vectors
+        xc = xc.clone()
     out = torch.empty_like(xc)
     rows = xc.numel() // n
     if rows == 0:
         return out
-    cplx = xc.is_complex()
-    scratch = out if n <= lib.fwht_row_limit(8 if cplx else 4) else torch.empty_like(xc)
+    scratch = torch.empty_like(xc) if plan.path == "split" else out
     rc = lib.fwht_launch(
-        xc.data_ptr(), out.data_ptr(), scratch.data_ptr(), rows, log2n, int(cplx),
-        _MODES[(ordering, inverse)], math.sqrt(n), torch.cuda.current_stream(x.device).cuda_stream,
+        xc.data_ptr(), out.data_ptr(), scratch.data_ptr(), rows, log2n, int(xc.is_complex()),
+        _MODES[(ordering, inverse)], math.sqrt(n), PATHS[plan.path], plan.threads, plan.smem_bytes,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
+    if rc == CLUSTER_UNPLACEABLE:
+        raise RuntimeError(f"fwht_kernel: the card cannot place a cluster of {plan.cluster} blocks "
+                           f"with {plan.smem_bytes} B of shared memory each")
     raise_on_launch_error("fwht_kernel", rc)
-    fwht_kernel.launches += 1
     return out
 
 

@@ -7,11 +7,14 @@ conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from jstsp19_torch.core import prng
+from jstsp19_torch.harness import runner
 from jstsp19_torch.harness.pipeline import (
     PointConfig,
     fused_point_errors,
@@ -23,6 +26,7 @@ from jstsp19_torch.kernels import admm_fused
 from jstsp19_torch.kernels.admm_fused import fused_tracked_admm, fused_tracked_admm_plain
 from jstsp19_torch.kernels.dictionary import dict_correlation, dict_correlation_plain
 from jstsp19_torch.kernels.softthresh import fused_soft_threshold, fused_soft_threshold_plain
+from jstsp19_torch.kernels import wht
 from jstsp19_torch.kernels.wht import fwht_kernel, fwht_plain, ifwht_plain
 from jstsp19_torch.harness import hadamard_cs as hcs
 from jstsp19_torch.solvers.admm import admm_hyperparams, proposed_admm
@@ -188,6 +192,19 @@ def test_fused_route_matches_tracked_route_on_card(cuda):
     assert prob["subY"].is_cuda and prob["rank"].dtype == torch.int32
 
 
+def test_run_point_fused_at_shapes_the_kernel_cannot_hold(cuda):
+    """Nr = Mr_e = Gr = 64 needs 255,296 B of shared memory: run_point with
+    'fused' takes the tracked route there instead of raising, and its NMSE
+    equals the tracked route's at rtol 2e-3, atol 2e-4."""
+    pc = PointConfig(Nr=64, Mr_e=64, Gr=64, methods=("proposed", "proposed_angles"), Imax=IMAX)
+    before = fused_tracked_admm.launches
+    got = runner.run_point(dataclasses.replace(pc, svt_method="fused"), 1.0, 8, seed=3)
+    assert fused_tracked_admm.launches == before
+    want = runner.run_point(dataclasses.replace(pc, svt_method="tracked"), 1.0, 8, seed=3)
+    for m in pc.methods:
+        np.testing.assert_allclose(got[m], want[m], rtol=2e-3, atol=2e-4)
+
+
 @pytest.mark.parametrize("shape,shared", [
     ((256, 32, 20, 32, 16), False),   # the errorVSnrf ADMM
     ((256, 4, 16, 32, 16), False),   # VAMP's adjoint at Mr=4
@@ -261,12 +278,13 @@ def test_unfused_solve_runs_the_kernels(cuda):
     assert fused_soft_threshold.launches - s0 == 2 * IMAX
 
 
-@pytest.mark.parametrize("n", [2, 64, 4096, 32768, 65536, 1 << 20])
+@pytest.mark.parametrize("n", [2, 64, 4096, *(1 << k for k in range(14, 21))])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
 def test_fwht_kernel_matches_plain(cuda, n, dtype):
-    """Bit-equal (max|Δ| = 0) in both orders and directions: the kernel runs
-    the plain version's additions in the same order and divides by the same
-    float32 √n, in one block per row up to 128 KB a row and in two passes
+    """Bit-equal (max|Δ| = 0) in both orders and directions at every
+    boundary of ``plan_fwht``: the kernel runs the plain version's additions
+    in the same order and divides by the same float32 √n, in one block a
+    row up to 128 KB, in a cluster of blocks up to 1 MB, and in two passes
     above."""
     g = torch.Generator(device=cuda).manual_seed(n)
     x = torch.randn(max(2, min(256, (1 << 21) // n)), n, generator=g, device=cuda, dtype=dtype)
@@ -278,6 +296,23 @@ def test_fwht_kernel_matches_plain(cuda, n, dtype):
             assert fwht_kernel.launches == before + 1
             ref = (ifwht_plain if inverse else fwht_plain)(x, ordering)
             assert torch.equal(out, ref), (ordering, inverse, float((out - ref).abs().max()))
+    # a row that starts off a 16-byte boundary is copied, not read misaligned
+    shifted = x.reshape(-1)[1:1 + (x.shape[0] - 1) * n].reshape(-1, n)
+    assert shifted.data_ptr() % 16 and torch.equal(fwht_kernel(shifted), fwht_plain(shifted))
+
+
+def test_fwht_kernel_rejects_a_plan_that_does_not_fit_n(cuda):
+    """The library checks the plan against n: a cluster plan with the wrong
+    shared memory, a row plan for a row over 128 KB, and a cluster plan for
+    a row one block holds all raise instead of launching."""
+    x = torch.randn(32, 65536, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    small = torch.randn(32, 4096, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    plan = wht.plan_fwht(65536, 4)
+    for x_bad, plan_bad in ((x, plan._replace(smem_bytes=plan.smem_bytes // 2)),
+                            (x, wht.FwhtPlan("row", 1, 512, 65536 * 4)),
+                            (small, wht.FwhtPlan("cluster", wht.CLUSTER, 32, 4096 * 4 // wht.CLUSTER))):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            wht._launch(wht._library(), x_bad, "sequency", False, plan_bad)
 
 
 def test_fwht_kernel_rejects_what_it_does_not_take(cuda):

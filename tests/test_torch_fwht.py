@@ -88,6 +88,35 @@ def test_kernel_wrapper_takes_the_plain_version_on_cpu(dtype):
     torch.testing.assert_close(wht.fwht_kernel(nat, "natural"), x, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("elem_bytes", [4, 8], ids=["float32", "complex64"])
+def test_plan_fwht_at_every_length(elem_bytes):
+    """For every n from 2 to 2^24: one block a row up to 128 KB (2^15
+    float32, 2^14 complex64), a cluster of 8 blocks up to 1 MB (2^18,
+    2^17), the two-pass split above; each block within the 232,448 B of
+    shared memory a block may use and 32-512 threads in whole warps, a
+    cluster's blocks holding equal contiguous parts of the row; the GAMP
+    slice's (32, 65536) float32 rows on the one-pass cluster path."""
+    for log2n in range(1, 25):
+        n = 1 << log2n
+        plan = wht.plan_fwht(n, elem_bytes)
+        row = n * elem_bytes
+        want = "row" if row <= 128 * 1024 else "cluster" if row <= 1024 * 1024 else "split"
+        assert plan.path == want, (n, plan)
+        assert plan.cluster in {1, 2, 4, 8} and plan.cluster == (wht.CLUSTER if want == "cluster" else 1)
+        assert plan.smem_bytes <= 232_448 and 32 <= plan.threads <= 512 and plan.threads % 32 == 0
+        if want != "split":
+            assert plan.smem_bytes * plan.cluster == row
+            # a thread holds 128 B of entries (the whole row when it is shorter) a
+            # pass, on the cluster path two such units
+            units = plan.smem_bytes // (128 if want == "row" else 256)
+            assert plan.threads == min(512, max(32, units))
+    assert wht.plan_fwht(65536, 4) == wht.FwhtPlan("cluster", 8, 128, 32768)
+    with pytest.raises(ValueError, match="supports n"):
+        wht.plan_fwht(1 << 25, elem_bytes)
+    with pytest.raises(ValueError, match="power of two"):
+        wht.plan_fwht(48, elem_bytes)
+
+
 def test_fwht_rejects_bad_lengths_and_orderings():
     with pytest.raises(ValueError, match="power of two"):
         wht.fwht_plain(torch.zeros(2, 12))

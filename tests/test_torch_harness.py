@@ -97,6 +97,42 @@ def test_run_point_routes():
         np.testing.assert_allclose(got[m], ref[m].numpy(), rtol=1e-6)
 
 
+# PointConfig fields of one sweep point for each of the 12 distinct shapes
+# the fused route reaches in the seven recipes (as in chip_smoke.py [13])
+SWEEP_POINTS = (
+    {}, dict(Nt=8, Gt=8, T=5, beamformer="fft"), dict(Nt=8, Gt=8, T=15, beamformer="fft"),
+    dict(Nt=8, Gt=8, T=25, beamformer="fft"), dict(Nt=8, Gt=8, T=35, beamformer="fft"),
+    dict(L=4, T=10), dict(L=6, T=15), dict(L=8, T=20), dict(L=10, T=25),
+    dict(Nt=6, Gt=6, beamformer="fft"), dict(Nt=12, Gt=12, beamformer="fft"),
+    dict(Nt=16, Gt=16, T=25, beamformer="fft"),
+)
+
+
+def test_fused_route_takes_tracked_where_the_kernel_cannot_hold_the_shapes():
+    """``admm_fused.fits`` is False at the three shapes whose layout passes
+    the 232,448 B a block may use, True at all 12 fused-route sweep shapes,
+    and ``run_point`` routes a point the kernel cannot hold to 'tracked',
+    decided from the shapes alone."""
+    from jstsp19_torch.kernels import admm_fused
+
+    for N, M, Gr, K, smem in ((64, 140, 64, 16, 255_296), (32, 400, 32, 80, 237_312), (70, 140, 32, 16, 237_680)):
+        assert not admm_fused.fits(N, M, Gr, K)
+        with pytest.raises(ValueError, match=f"need {smem} B"):
+            admm_fused.plan(N, M, Gr, K)
+    shapes = set()
+    for changes in SWEEP_POINTS:
+        pc = pipeline.PointConfig(svt_method="fused", **changes)
+        N, M, K = pc.Mr_e, pc.T * pc.Nt, pc.L * pc.Gt
+        assert admm_fused.fits(N, M, pc.Gr, K) and runner.svt_route(pc) == "fused"
+        shapes.add((N, M, pc.Gr, K))
+    assert len(shapes) == 12
+    big = pipeline.PointConfig(Nr=64, Mr_e=64, Gr=64, svt_method="fused")
+    assert runner.svt_route(big) == "tracked"
+    assert runner.svt_route(pipeline.PointConfig(Nt=8, Gt=8, L=10, T=50, svt_method="fused")) == "tracked"
+    assert runner.svt_route(pipeline.PointConfig(Mr=16, T=5, svt_method="fused")) == "tracked"  # N > M
+    assert runner.svt_route(dataclasses.replace(big, svt_method="eigh")) == "eigh"
+
+
 def test_unported_parts_raise_and_name_their_roadmap_item(tmp_path):
     gens = prng.realization_generators(0, 0, "cpu")
     for m in ("omp_td", "svt", "tssr"):
