@@ -24,10 +24,14 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    ``soft_threshold.cu`` (built in phase 1);
 6. each of those kernels against its plain version at every shape the
    second slice launches (B=256): ``dict_correlation`` for the errorVSnrf
-   ADMM (K 32x20), VAMP's adjoint (K Mrx16, A Mrx32, Mr in 4, 8, 12, 16)
-   and the canonical K 32x140, shared and per realization,
-   max|Δ| ≤ 1e-5·max|ref|; ``soft_threshold`` with a shared and a
-   per-matrix τ, max|Δ| ≤ 1e-6; both timed against their plain versions;
+   ADMM (K 32x20 and, at Mr=16, 32x80), VAMP's adjoint (K Mrx16, A Mrx32,
+   Mr in 4, 8, 12, 16) and the canonical K 32x140, shared and per
+   realization, max|Δ| ≤ 1e-5·max|ref|; ``soft_threshold`` with a shared
+   and a per-matrix τ, max|Δ| ≤ 1e-6; at each shape the plan
+   (``kernels/dictionary.py::plan``), the device time a call under
+   ``torch.profiler``, the time a call of back-to-back calls (with the
+   wrapper's host cost) and the bound; both timed against their plain
+   versions;
 7. the second slice, ``python -m jstsp19_torch run error_vs_nrf --n-mc 256
    --no-plot``, in-process: exit 0; both kernels' launch counts rose by at
    least 4 points x 2 proposed methods x Imax; every curve value finite and
@@ -375,8 +379,10 @@ def main() -> int:
           for mr in NRF_MR),
         ("canonical, shared A and B", crandn(32, 32), crandn(B, 32, 140), crandn(16, 140)),
         ("canonical, per realization", crandn(B, 32, 32), crandn(B, 32, 140), crandn(B, 16, 140)),
+        ("errorVSnrf ADMM Mr=16", crandn(B, 32, 32), crandn(B, 32, 80), crandn(B, 16, 80)),
     ]
     dict_err = 0.0
+    dict_device = []
     for what, A_, K_, B_ in dict_cases:
         out_k = dict_correlation(A_, K_, B_)
         ref = dict_correlation_plain(A_, K_, B_)
@@ -388,17 +394,34 @@ def main() -> int:
               f"max|d|={err:.3e} <= 1e-5*max|ref|={1e-5 * scale:.3e}: {ok}")
         if not ok:
             raise SystemExit("[6] dict_correlation disagrees with its plain version")
+        Nk, Mk = K_.shape[-2:]
+        Grk, Kdk = A_.shape[-1], B_.shape[-2]
+        plan = dictionary.plan(Nk, Mk, Grk, Kdk)
+        d_ms, launched = device_ms(lambda: dict_correlation(A_, K_, B_), match="dict_correlation")
+        call_ms = _per_call_ms(lambda: dict_correlation(A_, K_, B_))
+        bound = _bound(_nbytes(A_, K_, B_) + B * Grk * Kdk * 8, 8.0 * B * (Nk * Mk * Kdk + Grk * Nk * Kdk))
+        dict_device.append(d_ms)
+        print(f"[6]   plan {plan.rpb} realization(s) a block, tk {plan.tk}, tiles of {plan.mt} columns, "
+              f"{plan.smem_bytes} B shared; device {d_ms * 1e3:.2f} us in {launched:.0f} kernel(s) a call, "
+              f"{call_ms * 1e3:.2f} us a call of {TIMED_CALLS} back to back; bound {bound[0] * 1e3:.3f} us "
+              f"({bound[1]}), {100 * bound[0] / d_ms:.1f}% of it (card: {card})")
     v = crandn(B, 32, 16) * 0.3
     tau_shared = 0.2
     tau_per = torch.rand(B, 1, 1, generator=g, device=dev) * 0.4
     soft_err = 0.0
+    soft_device = []
     for what, tau in (("shared tau", tau_shared), ("per-matrix tau", tau_per)):
         out_k = fused_soft_threshold(v, tau)
         ref = fused_soft_threshold_plain(v, tau)
         torch.cuda.synchronize()
         err = float((out_k - ref).abs().max())
         soft_err = max(soft_err, err)
-        print(f"[6] soft_threshold {what}, v {tuple(v.shape)}: max|d|={err:.3e} <= 1e-6: {err <= 1e-6}")
+        d_ms, launched = device_ms(lambda: fused_soft_threshold(v, tau), match="soft_threshold")
+        call_ms = _per_call_ms(lambda: fused_soft_threshold(v, tau))
+        soft_device.append(d_ms)
+        print(f"[6] soft_threshold {what}, v {tuple(v.shape)}: max|d|={err:.3e} <= 1e-6: {err <= 1e-6}; "
+              f"device {d_ms * 1e3:.2f} us in {launched:.0f} kernel(s) a call, {call_ms * 1e3:.2f} us a call "
+              f"of {TIMED_CALLS} back to back (card: {card})")
         if not err <= 1e-6:
             raise SystemExit("[6] soft_threshold disagrees with its plain version")
     _, A_, K_, B_ = dict_cases[0]
@@ -413,7 +436,8 @@ def main() -> int:
           f"(plain {soft_plain_ms:.4f} ms) at v {tuple(v.shape)} (card: {card})")
     Nk, Mk = K_.shape[-2:]
     Grk, Kdk = A_.shape[-1], B_.shape[-2]
-    dict_bound = _bound(_nbytes(A_, K_, B_) + B * Grk * Kdk * 8, 8.0 * B * (Grk * Nk * Mk + Grk * Mk * Kdk))
+    # Aᴴ·(K·Bᴴ), the cheaper association: N·M·Kd + Gr·N·Kd complex multiply-adds a matrix
+    dict_bound = _bound(_nbytes(A_, K_, B_) + B * Grk * Kdk * 8, 8.0 * B * (Nk * Mk * Kdk + Grk * Nk * Kdk))
     soft_bound = _bound(_nbytes(v, tau_per, v), 6.0 * v.numel())
     print(f"[6] bounds: dict_correlation {dict_bound[0] * 1e3:.3f} us ({dict_bound[1]}), "
           f"soft_threshold {soft_bound[0] * 1e3:.3f} us ({soft_bound[1]})")
@@ -488,6 +512,7 @@ def main() -> int:
         "bound_ms": dict_bound[0],
         "bound_by": dict_bound[1],
         "library_ms": dict_library_ms,
+        "device_ms": dict_device[0],  # torch.profiler at K (256, 32, 20), without the wrapper's host cost
     }, {
         "name": "soft_threshold",
         "route": "cuda",
@@ -500,6 +525,7 @@ def main() -> int:
         "bound_ms": soft_bound[0],
         "bound_by": soft_bound[1],
         "library_ms": None,  # softshrink takes one τ for all; the path passes one per matrix
+        "device_ms": soft_device[1],  # torch.profiler, per-matrix τ
     }]
 
     # ---- 9. the third slice's kernel: build report ------------------------------------

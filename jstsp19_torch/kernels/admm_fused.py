@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from jstsp19_torch.core.config import use_full_fp32
-from jstsp19_torch.kernels.build import SMEM_LIMIT_BYTES, check_tensor as _check, raise_on_launch_error
+from jstsp19_torch.kernels.build import SMEM_LIMIT_BYTES, check_tensor as _check, current_stream, raise_on_launch_error
 from jstsp19_torch.ops.jacobi import _round_robin_schedule
 from jstsp19_torch.solvers.admm import proposed_admm
 
@@ -211,7 +211,7 @@ def _launch(
             planes.data_ptr(), A_p.data_ptr(), B_p.data_ptr(), AhA_t.data_ptr(), BBh.data_ptr(),
             rank_ptr, hp.data_ptr(), sched.data_ptr(), s.data_ptr(), y.data_ptr(), work.data_ptr(),
             Bt, N, M, Gr, K, Imax, track_rounds, support_base, support_step, smem_bytes,
-            torch.cuda.current_stream(dev).cuda_stream,
+            current_stream(dev),
         )
         raise_on_launch_error("fused_tracked_admm", rc)
     return torch.complex(s[:, 0], s[:, 1]), torch.view_as_complex(y)

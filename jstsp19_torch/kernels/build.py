@@ -122,6 +122,12 @@ def check_tensor(name: str, x: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def current_stream(device: torch.device) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``, as
+    Triton's launcher reads it: no ``torch.cuda.Stream`` object is built."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def raise_on_launch_error(kernel: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")

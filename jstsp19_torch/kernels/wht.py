@@ -28,7 +28,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from jstsp19_torch.kernels.build import raise_on_launch_error
+from jstsp19_torch.kernels.build import current_stream, raise_on_launch_error
 
 _MODES = {("natural", False): 0, ("natural", True): 0, ("sequency", False): 1, ("sequency", True): 2}
 
@@ -213,7 +213,7 @@ def _launch(lib, x: torch.Tensor, ordering: str, inverse: bool, plan: FwhtPlan) 
     rc = lib.fwht_launch(
         xc.data_ptr(), out.data_ptr(), scratch.data_ptr(), rows, log2n, int(xc.is_complex()),
         _MODES[(ordering, inverse)], math.sqrt(n), PATHS[plan.path], plan.threads, plan.smem_bytes,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        current_stream(x.device),
     )
     if rc == CLUSTER_UNPLACEABLE:
         raise RuntimeError(f"fwht_kernel: the card cannot place a cluster of {plan.cluster} blocks "

@@ -7,6 +7,7 @@ conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -22,7 +23,7 @@ from jstsp19_torch.harness.pipeline import (
     realization_errors,
 )
 from jstsp19_torch.core.metrics import clamped_nmse
-from jstsp19_torch.kernels import admm_fused
+from jstsp19_torch.kernels import admm_fused, dictionary
 from jstsp19_torch.kernels.admm_fused import fused_tracked_admm, fused_tracked_admm_plain
 from jstsp19_torch.kernels.dictionary import dict_correlation, dict_correlation_plain
 from jstsp19_torch.kernels.softthresh import fused_soft_threshold, fused_soft_threshold_plain
@@ -213,8 +214,12 @@ def test_run_point_fused_at_shapes_the_kernel_cannot_hold(cuda):
     ((256, 16, 16, 32, 16), False),  # VAMP's adjoint at Mr=16
     ((256, 32, 140, 32, 16), True),   # canonical, the TPU signature
     ((256, 32, 140, 32, 16), False),  # canonical, the tracked route
-    ((5, 32, 400, 32, 64), False),    # errorVSnt Nt=16: three column tiles
+    ((5, 32, 400, 32, 64), False),    # errorVSnt Nt=16: thirteen tiles, two row passes
     ((3, 7, 9, 5, 3), True),          # odd sizes
+    ((256, 32, 80, 32, 16), False),   # the errorVSnrf ADMM at Mr=16
+    ((1, 32, 20, 32, 16), False),     # batch 1: half a block
+    ((255, 32, 140, 32, 16), True),   # a batch that is not a multiple of the realizations a block
+    ((257, 4, 16, 32, 16), False),    # ... nor here
 ])
 def test_dict_correlation_kernel_matches_plain(cuda, shape, shared):
     """max|Δ| ≤ 1e-5·max|ref|: the same fp32 contractions in another order."""
@@ -239,8 +244,50 @@ def test_dict_correlation_rejects_what_it_does_not_take(cuda):
         dict_correlation(A, K.to(torch.complex128), B)
     with pytest.raises(ValueError, match="shape"):
         dict_correlation(A[:3], K, B)
-    with pytest.raises(ValueError, match="shared memory"):
-        dict_correlation(_crandn(cuda, 200, 100), _crandn(cuda, 1, 200, 50), _crandn(cuda, 16, 50))
+    with pytest.raises(ValueError, match="shared memory"):  # A alone is 256 KB
+        dict_correlation(_crandn(cuda, 256, 128), _crandn(cuda, 1, 256, 50), _crandn(cuda, 16, 50))
+
+
+def test_dict_correlation_takes_views_off_a_16_byte_boundary(cuda):
+    """K, A and B each a view that starts 8 bytes past a 16-byte boundary
+    (a storage offset of one complex entry): the kernel takes them with
+    8-byte copies, max|Δ| ≤ 1e-5·max|ref|; so does an odd M."""
+    b, N, M, Gr, Kd = 64, 32, 20, 32, 16
+
+    def shifted(*shape, seed):
+        flat = _crandn(cuda, 1 + int(np.prod(shape)), seed=seed)
+        return flat[1:].view(*shape)
+
+    for A, K, B in ((shifted(b, N, Gr, seed=1), shifted(b, N, M, seed=2), shifted(b, Kd, M, seed=3)),
+                    (_crandn(cuda, b, N, Gr, seed=1), _crandn(cuda, b, N, M + 1, seed=2),
+                     _crandn(cuda, b, Kd, M + 1, seed=3))):
+        assert K.data_ptr() % 16 == 8 or K.shape[-1] % 2 == 1
+        before = dict_correlation.launches
+        out = dict_correlation(A, K, B)
+        torch.cuda.synchronize()
+        assert dict_correlation.launches == before + 1
+        ref = dict_correlation_plain(A, K, B)
+        assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_dict_plan_matches_the_library(cuda):
+    """kernels/dictionary.py::plan's shared memory is the library's count at
+    every shape the port launches; a plan the kernel cannot run (a tile
+    that is not a multiple of 4 columns, more threads than a block) is
+    refused by the library without a launch."""
+    lib = dictionary._library()
+    for N, M, Gr, Kd in [(32, m, 32, 16) for m in (20, 40, 60, 80, 140)] + [
+            (mr, 16, 32, 16) for mr in (4, 8, 12, 16)] + [(32, 400, 32, 64), (7, 9, 5, 3)]:
+        p = dictionary.plan(N, M, Gr, Kd)
+        assert lib.dict_correlation_smem_bytes(N, Gr, p.rpb, p.tk, p.mt) == p.smem_bytes, (N, M, Gr, Kd)
+    A, K, B = _crandn(cuda, 2, 32, 32), _crandn(cuda, 2, 32, 20), _crandn(cuda, 2, 16, 20)
+    out = torch.empty(2, 32, 16, dtype=torch.complex64, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for rpb, tk, mt in ((2, 8, 6), (16, 32, 20), (3, 8, 20)):
+        args = dictionary.params(2, 32, 20, 32, 16, 32 * 32, 16 * 20, dictionary.DictPlan(rpb, tk, mt, 0))
+        rc = lib.dict_correlation_launch(A.data_ptr(), K.data_ptr(), B.data_ptr(), out.data_ptr(),
+                                         ctypes.addressof(args), stream)
+        assert rc != 0, (rpb, tk, mt)
 
 
 @pytest.mark.parametrize("per_matrix", [False, True])
@@ -258,6 +305,51 @@ def test_soft_threshold_kernel_matches_plain(cuda, per_matrix):
     assert torch.equal(torch.isnan(out.real), torch.isnan(ref.real))
     fin = torch.isfinite(ref.real)
     assert float((out - ref)[fin].abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("case", ["broadcast tau", "odd total", "scalar tau", "0-dim tau",
+                                  "v off a 16-byte boundary", "tau over the outer dimension"])
+def test_soft_threshold_kernel_tau_layouts(cuda, case):
+    """Equal to the plain version (max|Δ| ≤ 1e-6; the same float32
+    operations) with a τ broadcast over every matrix (stride 0), an odd
+    count of entries a matrix and in all, a number (passed by value), a
+    0-dim τ on the card, a v that starts 8 bytes past a 16-byte boundary,
+    and a τ (B1, 1, 1, 1) over v (B1, B2, n, m)."""
+    shape, tau = (256, 32, 16), None
+    if case == "broadcast tau":
+        tau = torch.full((1, 1, 1), 0.2, device=cuda).expand(256, 1, 1)
+    elif case == "odd total":
+        shape, tau = (3, 5, 7), torch.rand(3, 1, 1, device=cuda)
+    elif case == "scalar tau":
+        shape, tau = (5, 9, 7), 0.25
+    elif case == "0-dim tau":
+        tau = torch.tensor(0.15, device=cuda)
+    elif case == "tau over the outer dimension":
+        shape, tau = (4, 8, 32, 16), torch.rand(4, 1, 1, 1, device=cuda) * 0.4
+    v = _crandn(cuda, *shape, seed=5) * 0.3
+    if case == "v off a 16-byte boundary":
+        v = (_crandn(cuda, 1 + v.numel(), seed=5) * 0.3)[1:].view(shape)
+        tau = torch.rand(256, 1, 1, device=cuda) * 0.4
+        assert v.data_ptr() % 16 == 8
+    before = fused_soft_threshold.launches
+    out = fused_soft_threshold(v, tau)
+    torch.cuda.synchronize()
+    assert fused_soft_threshold.launches == before + 1
+    assert float((out - fused_soft_threshold_plain(v, tau)).abs().max()) <= 1e-6
+
+
+def test_soft_threshold_rejects_what_it_does_not_take(cuda):
+    v = _crandn(cuda, 4, 32, 16)
+    before = fused_soft_threshold.launches
+    with pytest.raises(ValueError, match="dtype"):
+        fused_soft_threshold(v.to(torch.complex128), 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_soft_threshold(v.transpose(1, 2), 0.1)
+    with pytest.raises(ValueError, match=r"\(\.\.\., n, m\)"):
+        fused_soft_threshold(v.reshape(-1), 0.1)
+    with pytest.raises(ValueError, match=r"\(\.\.\., 1, 1\)"):
+        fused_soft_threshold(v, torch.full((4,), 0.1, device=cuda))
+    assert fused_soft_threshold.launches == before
 
 
 def test_unfused_solve_runs_the_kernels(cuda):
