@@ -68,7 +68,23 @@ Phases (any failure ends the run with a non-zero exit code and no result):
     the kernel instance it runs;
 14. the kernel timed at the canonical shape for B = 1, 132 and 256 and at
     (M, K) = (420, 48) for B=256, Imax=100: best, median and spread of 5
-    CUDA-event reps, each beside its bound.
+    CUDA-event reps, each beside its bound;
+15. the fourth slice, the specialized recipes: ``dict_correlation`` and
+    ``soft_threshold`` against their plain versions at every shape these
+    recipes give them (max|Δ| ≤ 1e-5·max|ref| and ≤ 1e-6), each with its
+    plan, its device time a call under ``torch.profiler`` and its bound; then every recipe
+    through the CLI (``python -m jstsp19_torch run <recipe> --n-mc N
+    --no-plot``, in-process) at the reference's size (capacity and energy
+    efficiency at n_mc=10000 over all their geometries; rate, the
+    approximate front end and the other ADMM recipes at 256;
+    ``channel_correlation`` and ``bar3_beamspace``, one channel a run, over
+    seeds 0-63): exit 0; the JSON has the keys, sweep and curve names of
+    ``results/<recipe>.json``; every value finite; every point within 4
+    combined standard errors of ``results/torch_specialized_jax.json``; both
+    kernels' launch counts rose in each ADMM recipe; each recipe's wall
+    time; and the approximate front end's 0 dB point (Imax=50, approximate
+    mode, B=256) with the kernels on and off on the same generators:
+    per-realization NMSE within rtol 2e-3, atol 2e-4.
 
 Then one JSON line with each kernel's launches, error, times and bound (the
 larger of its bytes over 3.35 TB/s and its float32 operations over
@@ -220,6 +236,176 @@ def _per_call_ms(fn, calls: int = TIMED_CALLS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / calls
+
+
+# the fourth slice's recipes and the n_mc each runs at in phase 15: the
+# reference's 10000 for capacity and energy efficiency, 256 for the rest
+# (at or above their JAX artifacts' 8 to 50)
+SPECIAL_RECIPES = (
+    ("capacity", 10000), ("energy_efficiency", 10000), ("rate_vs_framelength", B_MAIN),
+    ("error_vs_snr_approx", B_MAIN), ("error_vs_zy", B_MAIN), ("error_vs_admmiters", B_MAIN),
+    ("error_vs_snr_nyuwireless", B_MAIN), ("rank_r", B_MAIN), ("rank_r_quirks", B_MAIN),
+)
+SPECIAL_ADMM = ("rate_vs_framelength", "error_vs_snr_approx", "error_vs_zy", "error_vs_admmiters",
+                "error_vs_snr_nyuwireless")
+SINGLE_CHANNEL = ("channel_correlation", "bar3_beamspace")  # one channel a run
+SINGLE_SEEDS = 64  # the maxima are heavy-tailed: a normal z needs many seeds
+
+
+def _resolution(name: str, ref_mean) -> float:
+    """The numerical resolution of a recipe's curve, added in quadrature to
+    its standard error: a float32 Gram's eigenvalues are resolved to about
+    Mr_e·eps of the largest, so the rank recipes' singular values to
+    sqrt(Mr_e·eps) of the largest (the null space's values are roundoff in
+    both packages); 0 for the other recipes."""
+    if name.startswith("rank_r"):
+        return math.sqrt(len(ref_mean) * float(np.finfo(np.float32).eps)) * max(ref_mean)
+    return 0.0
+
+
+def _special_shapes(B: int):
+    """(what, A, K, B) shapes the specialized recipes give the two per-op
+    kernels (the soft threshold takes the output's): A shared (the FFT and
+    'ps' combiners) or per realization (the pipeline's), B per realization."""
+    return (
+        ("approximate front end (Kd 16, M 70)", (32, 32), (B, 32, 70), (B, 16, 70)),
+        *((f"rate T={T} (Kd 32, M {8 * T})", (B, 32, 32), (B, 32, 8 * T), (B, 32, 8 * T)) for T in (5, 10, 15)),
+        ("Z vs Y (Kd 64, M 80)", (32, 32), (B, 32, 80), (B, 64, 80)),
+        ("ADMM iterations (Kd 16, M 40)", (32, 32), (B, 32, 40), (B, 16, 40)),
+    )
+
+
+def _special_recipes(root, dev, card, cli, dict_correlation, dict_correlation_plain, dictionary,
+                     fused_soft_threshold, fused_soft_threshold_plain) -> dict:
+    """Phase 15; returns the two kernels' launches on the recipes' runs and
+    their largest error against the plain versions."""
+    import time
+
+    from jstsp19_torch.bench import device_ms
+    from jstsp19_torch.core import prng
+    from jstsp19_torch.harness import experiments
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    dict_err = soft_err = 0.0
+    for what, a_shape, k_shape, b_shape in _special_shapes(B_MAIN):
+        A_, K_, B_ = (torch.randn(*sh, generator=g, device=dev, dtype=torch.complex64)
+                      for sh in (a_shape, k_shape, b_shape))
+        out_k, ref = dict_correlation(A_, K_, B_), dict_correlation_plain(A_, K_, B_)
+        torch.cuda.synchronize()
+        err, scale = float((out_k - ref).abs().max()), float(ref.abs().max())
+        dict_err = max(dict_err, err)
+        plan = dictionary.plan(k_shape[-2], k_shape[-1], a_shape[-1], b_shape[-2])
+        v = (ref * 0.3 / scale).contiguous()  # the einsum may leave ref strided
+        tau = torch.rand(B_MAIN, 1, 1, generator=g, device=dev) * 0.2
+        s_err = float((fused_soft_threshold(v, tau) - fused_soft_threshold_plain(v, tau)).abs().max())
+        soft_err = max(soft_err, s_err)
+        print(f"[15] {what}: dict_correlation K {k_shape}, A {a_shape}, B {b_shape}: max|d|={err:.3e} <= "
+              f"1e-5*max|ref|={1e-5 * scale:.3e}: {err <= 1e-5 * scale} (plan {plan.rpb} a block, tk {plan.tk}, "
+              f"tiles of {plan.mt}, {plan.smem_bytes} B shared); soft_threshold v {tuple(v.shape)}, a tau per "
+              f"matrix: max|d|={s_err:.3e} <= 1e-6: {s_err <= 1e-6}")
+        if not (err <= 1e-5 * scale and s_err <= 1e-6):
+            raise SystemExit(f"[15] {what}: a kernel disagrees with its plain version")
+        N, M, Gr, Kd = k_shape[-2], k_shape[-1], a_shape[-1], b_shape[-2]
+        d_bound = _bound(_nbytes(A_, K_, B_, ref), 8.0 * B_MAIN * (N * M * Kd + Gr * N * Kd))
+        s_bound = _bound(_nbytes(v, tau, v), 6.0 * v.numel())
+        d_ms, _ = device_ms(lambda: dict_correlation(A_, K_, B_), match="dict_correlation")
+        s_ms, _ = device_ms(lambda: fused_soft_threshold(v, tau), match="soft_threshold")
+        print(f"[15]   device a call: dict_correlation {d_ms * 1e3:.2f} us (bound {d_bound[0] * 1e3:.3f} us, "
+              f"{d_bound[1]}, {100 * d_bound[0] / d_ms:.1f}% of it), soft_threshold {s_ms * 1e3:.2f} us (bound "
+              f"{s_bound[0] * 1e3:.3f} us, {s_bound[1]}) (card: {card})")
+
+    reference = json.loads((root / "results" / "torch_specialized_jax.json").read_text())["recipes"]
+    launches = {"dict_correlation": 0, "soft_threshold": 0}
+    worst_all = 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [(name, n_mc, 0) for name, n_mc in SPECIAL_RECIPES]
+        runs += [(name, 1, seed) for name in SINGLE_CHANNEL for seed in range(SINGLE_SEEDS)]
+        single = {name: [] for name in SINGLE_CHANNEL}
+        for name, n_mc, seed in runs:
+            out_dir = pathlib.Path(tmp) / f"{name}.{seed}"
+            dict_correlation.launches = 0
+            fused_soft_threshold.launches = 0
+            kept = {}
+            recipe = experiments.EXPERIMENTS[name]
+            # the CLI calls the registry's recipe: keep its SweepResult, whose
+            # per-point sd the JSON (the JAX schema) leaves out
+            experiments.EXPERIMENTS[name] = lambda **kw: kept.setdefault("res", recipe(**kw))
+            t0 = time.time()
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = cli.main(["run", name, "--n-mc", str(n_mc), "--seed", str(seed), "--no-plot",
+                                   "--out", str(out_dir)])
+                torch.cuda.synchronize()
+            finally:
+                experiments.EXPERIMENTS[name] = recipe
+            wall = time.time() - t0
+            n_dict, n_soft = dict_correlation.launches, fused_soft_threshold.launches
+            launches["dict_correlation"] += n_dict
+            launches["soft_threshold"] += n_soft
+            if rc != 0:
+                raise SystemExit(f"[15] {name}: the CLI exited {rc}")
+            got = json.loads((out_dir / f"{name}.json").read_text())
+            art = json.loads((root / "results" / f"{name}.json").read_text())
+            schema = (set(got) == set(art) and got["sweep"] == art["sweep"]
+                      and set(got["curves"]) == set(art["curves"]) == set(reference[name]["curves"]))
+            finite = all(math.isfinite(x) for c in got["curves"].values() for x in c)
+            if not (schema and finite):
+                raise SystemExit(f"[15] {name}: the JSON lacks the JAX artifact's schema or holds a non-finite value")
+            if name in SINGLE_CHANNEL:
+                single[name].append((got["curves"], wall))
+                continue
+            worst, where = 0.0, ""
+            for m, curve in got["curves"].items():
+                ref = reference[name]["curves"][m]
+                floor = _resolution(name, ref["mean"])
+                for i, x in enumerate(curve):
+                    sd = kept["res"].sd[m][i]
+                    se = math.sqrt(ref["sd"][i] ** 2 / ref["n"][i] + sd**2 / n_mc + floor**2)
+                    z = (x - ref["mean"][i]) / se if se > 0 else (0.0 if x == ref["mean"][i] else math.inf)
+                    if abs(z) >= abs(worst):
+                        worst, where = z, f"{m}[{i}]"
+            worst_all = max(worst_all, abs(worst))
+            kernels_ok = name not in SPECIAL_ADMM or (n_dict > 0 and n_soft > 0)
+            print(f"[15] {name}: n_mc {n_mc}, wall {wall:.3f} s (card: {card}); launches dict_correlation {n_dict}, "
+                  f"soft_threshold {n_soft}; schema of results/{name}.json; largest |z| against the JAX reference "
+                  f"(n {reference[name]['n_mc']}) {abs(worst):.2f} at {where}: within 4 SE: {abs(worst) <= 4}")
+            if abs(worst) > 4:
+                raise SystemExit(f"[15] {name}: {where} outside 4 SE of the JAX reference")
+            if not kernels_ok:
+                raise SystemExit(f"[15] {name}: the ADMM recipe did not go through both kernels")
+        for name, runs in single.items():
+            curves = [c for c, _ in runs]
+            worst, where = 0.0, ""
+            for m in curves[0]:
+                v = np.asarray([c[m] for c in curves])
+                ref = reference[name]["curves"][m]
+                se = np.sqrt(v.var(axis=0, ddof=1) / len(v) + np.asarray(ref["sd"]) ** 2 / np.asarray(ref["n"]))
+                z = (v.mean(axis=0) - np.asarray(ref["mean"])) / se
+                i = int(np.argmax(np.abs(z)))
+                if abs(z[i]) >= abs(worst):
+                    worst, where = float(z[i]), f"{m}[{i}]"
+            worst_all = max(worst_all, abs(worst))
+            print(f"[15] {name}: seeds 0-{SINGLE_SEEDS - 1}, one channel each, wall {sum(w for _, w in runs):.3f} s in "
+                  f"all (card: {card}); largest |z| against the JAX "
+                  f"reference over {reference[name]['seeds']} seeds {abs(worst):.2f} at {where}: within 4 SE: "
+                  f"{abs(worst) <= 4}")
+            if abs(worst) > 4:
+                raise SystemExit(f"[15] {name}: {where} outside 4 SE of the JAX reference")
+    print(f"[15] launches on the recipes: dict_correlation {launches['dict_correlation']}, soft_threshold "
+          f"{launches['soft_threshold']}; largest |z| {worst_all:.2f}")
+
+    # the approximate front end's 0 dB point with the kernels on and off
+    nv0, i0 = 1.0, 3  # snr_db -15:5:15, index 3 is 0 dB
+    errs = [experiments._approx_realization(prng.realization_generators(0, i0, dev), nv0, B_MAIN, T=70,
+                                            sub_ratio=0.75, Imax=50, mode="approximate", use_kernels=flag)
+            for flag in (True, False)]
+    ok = bool(torch.allclose(errs[0], errs[1], rtol=2e-3, atol=2e-4))
+    print(f"[15] approximate front end 0 dB, Imax=50, B={B_MAIN}: mean NMSE kernels on {float(errs[0].mean()):.6f}, "
+          f"off {float(errs[1].mean()):.6f}; max per-realization |dNMSE| = "
+          f"{float((errs[0] - errs[1]).abs().max()):.3e}; within rtol 2e-3, atol 2e-4: {ok}")
+    if not ok:
+        raise SystemExit("[15] kernels on and off disagree at the approximate front end's 0 dB point")
+    return dict(launches, dict_err=dict_err, soft_err=soft_err)
 
 
 class _Tee(io.StringIO):
@@ -681,6 +867,15 @@ def main() -> int:
         print(f"[14] {label} B={Bt}, Imax={IMAX_MAIN}: best {t[0]:.3f} ms, median {t[len(t) // 2]:.3f} ms, "
               f"spread {t[-1] - t[0]:.3f} ms over {REPS} reps; bound {bound[0]:.3f} ms ({bound[1]}, "
               f"{flops / 1e9:.3f} GFLOP), {100 * bound[0] / t[0]:.1f}% of it (card: {card})")
+
+    # ---- 15. the fourth slice: the specialized recipes through the CLI ---------------
+    special = _special_recipes(root, dev, card, cli, dict_correlation, dict_correlation_plain, dictionary,
+                               fused_soft_threshold, fused_soft_threshold_plain)
+    for k, (name, err) in zip(kernels[1:3], (("dict_correlation", special["dict_err"]),
+                                             ("soft_threshold", special["soft_err"]))):
+        k["max_abs_err"] = max(k["max_abs_err"], err)
+        k["launches_by_path"] = {"error_vs_nrf": k["launches"], "specialized recipes": special[name]}
+        k["launches"] += special[name]
 
     kernels.append({
         "name": "fwht",

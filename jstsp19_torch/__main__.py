@@ -5,6 +5,7 @@ Usage:
   python -m jstsp19_torch run error_vs_nrf --n-mc 256 --no-plot --out results_torch
   python -m jstsp19_torch run all --n-mc 16
   python -m jstsp19_torch run error_vs_nrf --cpu --n-mc 8     # the CPU, plain versions
+  python -m jstsp19_torch run error_vs_snr_nyuwireless --mat-path nywireless_channel.mat
 
 Without ``--cpu`` a run needs a CUDA device and exits 1 when there is none.
 The JAX CLI's ``demo``, ``panel`` and ``--distributed`` are not ported yet
@@ -33,6 +34,7 @@ def main(argv=None) -> int:
         "--checkpoint-dir", default=None,
         help="journal per-point results here and resume completed points",
     )
+    runp.add_argument("--mat-path", default=None, help="NYU-Wireless channel .mat for error_vs_snr_nyuwireless")
     runp.add_argument(
         "--methods", default=None,
         help="comma-separated estimator subset (e.g. proposed,vamp) for recipes that accept it",
@@ -67,6 +69,8 @@ def main(argv=None) -> int:
     set_default_checkpoint(args.checkpoint_dir)
     for name in names:
         kwargs = {"n_mc": args.n_mc, "seed": args.seed, "device": device}
+        if args.mat_path and name == "error_vs_snr_nyuwireless":
+            kwargs["mat_path"] = args.mat_path
         if args.methods:
             if "methods" in inspect.signature(EXPERIMENTS[name]).parameters:
                 kwargs["methods"] = tuple(m.strip() for m in args.methods.split(",") if m.strip())

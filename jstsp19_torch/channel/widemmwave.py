@@ -142,3 +142,30 @@ def wideband_mmwave_channel(
     Dt = dft_dictionary(Mt, Gt, device)
     Zbar = beamspace(H, Dr, Dt)
     return Channel(H=H, Zbar=Zbar, Ar=Ar, At=At, Dr=Dr, Dt=Dt)
+
+
+def taps_to_subcarriers(H: torch.Tensor, K: int) -> torch.Tensor:
+    """Frequency response on K subcarriers, ``H_k = Σ_l H_l·e^{−j2πkl/K}``:
+    H (..., L, Mr, Mt) → (..., K, Mr, Mt) by an FFT over the tap axis,
+    zero-padded to K.  For K < L every tap still counts: the taps fold onto
+    the K-point grid (tap l adds to l mod K) before the FFT, they are not
+    truncated."""
+    L = H.shape[-3]
+    pad = (K - L) if K >= L else (-L) % K
+    Hp = torch.cat([H, H.new_zeros(H.shape[:-3] + (pad,) + H.shape[-2:])], dim=-3)
+    if K < L:
+        Hp = Hp.reshape(H.shape[:-3] + (-1, K) + H.shape[-2:]).sum(dim=-4)
+    return torch.fft.fft(Hp, dim=-3)
+
+
+def channel_from_taps(H: torch.Tensor, Gr: int, Gt: int) -> Channel:
+    """A :class:`Channel` from delay taps supplied from outside, such as a
+    ray tracer's (``plot_errorVSsnr_nyuwireless.m:59-70``): H (..., L, Mr, Mt).
+    Measured channels have no steering vectors, so Ar and At are empty,
+    (..., L, 0, Mr) and (..., L, 0, Mt)."""
+    L, Mr, Mt = H.shape[-3:]
+    Dr = dft_dictionary(Mr, Gr, H.device)
+    Dt = dft_dictionary(Mt, Gt, H.device)
+    lead = H.shape[:-3] + (L, 0)
+    return Channel(H=H, Zbar=beamspace(H, Dr, Dt), Ar=H.new_zeros(lead + (Mr,)),
+                   At=H.new_zeros(lead + (Mt,)), Dr=Dr, Dt=Dt)

@@ -3,15 +3,20 @@
 
 Conventional HBF (``hbf.m``) keeps the first Lr combiner outputs; the
 proposed HBF (``proposed_hbf.m``) observes a random Lr-subset of Lr_e
-outputs per training instant, expressed as a binary mask Omega.
+outputs per training instant, expressed as a binary mask Omega; the
+communication-system wrapper (``wideband_hybBF_comm_system_training.m``)
+does the same with Gaussian training over all Nr outputs.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Mapping, NamedTuple, Tuple
 
 import torch
 
-from jstsp19_torch.core.config import REAL_DTYPE
+from jstsp19_torch.core import prng
+from jstsp19_torch.core.config import REAL_DTYPE, matlab_round
+from jstsp19_torch.frontend.beamformers import create_beamformer
+from jstsp19_torch.frontend.training import awgn, gaussian_training_frames
 
 
 def received_frame(H: torch.Tensor, Psi: torch.Tensor, N: torch.Tensor) -> torch.Tensor:
@@ -68,3 +73,32 @@ def proposed_hbf(
     Y_full = W_e.mH @ R
     Omega = sample_omega(gen, Lr_e, Lr, R.shape[-1], batch=tuple(R.shape[:-2]))
     return ProposedObservation(Y=Omega * Y_full, Omega=Omega, W_e=W_e, Y_full=Y_full)
+
+
+def comm_system_training(
+    gens: Mapping[int, torch.Generator],
+    H: torch.Tensor,
+    T: int,
+    noise_var,
+    sub_sampling_ratio: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, int, torch.Tensor]:
+    """The ``wideband_hybBF_comm_system_training.m`` front end on H
+    (..., L, Nr, Nt): complex-Gaussian Toeplitz training, the FFT combiner
+    over all Nr outputs, and random spatial sampling of
+    Lr = round(ratio·Nr) outputs per training instant.  Draws the training,
+    the noise and the mask from ``gens``' training, noise and mask roles.
+
+    Returns (Y_proposed, Y_conventional, W, Omega, Lr, Psi); Psi (..., L, Nt, T)
+    is the training actually sent, so a driver builds B from the same frames
+    (``wideband_hybBF_comm_system_training.m:1,28-30``)."""
+    L, Nr, Nt = H.shape[-3:]
+    batch = tuple(H.shape[:-3])
+    Lr = matlab_round(sub_sampling_ratio * Nr)
+    Psi = gaussian_training_frames(gens[prng.ROLE_TRAINING], Nt, T, L, batch=batch)
+    # noise of variance noise_var before the combiner
+    # (wideband_hybBF_comm_system_training.m:16)
+    N = awgn(gens[prng.ROLE_NOISE], Nr, T, noise_var, batch=batch)
+    W = create_beamformer(Nr, "fft", device=H.device)
+    Y_conv = W.mH @ received_frame(H, Psi, N)
+    Omega = sample_omega(gens[prng.ROLE_MASK], Nr, Lr, T, batch=batch)
+    return Omega * Y_conv, Y_conv, W, Omega, Lr, Psi

@@ -1,4 +1,4 @@
-"""4-QAM (QPSK) modulation (counterpart of ``jstsp19_tpu/frontend/modulation.py``)."""
+"""4-QAM (QPSK) modulation and demodulation (counterpart of ``jstsp19_tpu/frontend/modulation.py``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -14,3 +14,10 @@ def qam4_mod(gen: torch.Generator, shape) -> torch.Tensor:
     """Unit-energy 4-QAM symbols drawn uniformly (``qam4mod.m:7-8``)."""
     idx = torch.randint(0, 4, tuple(shape), generator=gen, device=gen.device)
     return torch.from_numpy(QAM4_ALPHABET).to(gen.device)[idx]
+
+
+def qam4_demod(y: torch.Tensor) -> torch.Tensor:
+    """Quadrant slicer to the nearest unit-energy 4-QAM symbol (``qam4mod.m:13-32``)."""
+    return torch.complex(
+        torch.where(y.real >= 0, _S, -_S), torch.where(y.imag >= 0, _S, -_S)
+    ).to(torch.complex64)

@@ -36,6 +36,15 @@ def qam4_training_frames(
     return _toeplitz_rows(s, L).transpose(-3, -2).to(COMPLEX_DTYPE)
 
 
+def gaussian_training_frames(
+    gen: torch.Generator, Nt: int, T: int, L: int, batch: Tuple[int, ...] = ()
+) -> torch.Tensor:
+    """Complex-Gaussian Toeplitz training, per-tap view: (..., L, Nt, T)
+    (the ``wideband_hybBF_comm_system_training.m:19-22`` variant)."""
+    s = prng.complex_normal(gen, tuple(batch) + (Nt, T))
+    return _toeplitz_rows(s, L).transpose(-3, -2).to(COMPLEX_DTYPE)
+
+
 def awgn(
     gen: torch.Generator, Nr: int, T: int, noise_var, batch: Tuple[int, ...] = ()
 ) -> torch.Tensor:

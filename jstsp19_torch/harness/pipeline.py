@@ -16,7 +16,7 @@ from typing import Dict, Mapping, Tuple
 
 import torch
 
-from jstsp19_torch.channel import wideband_mmwave_channel
+from jstsp19_torch.channel import channel_from_taps, wideband_mmwave_channel
 from jstsp19_torch.core import prng
 from jstsp19_torch.core.config import matlab_round, use_full_fp32
 from jstsp19_torch.core.metrics import clamped_nmse, nmse
@@ -107,13 +107,17 @@ def _dictionaries(ch, W_c, Psi):
     return A, Bl.reshape(*Bl.shape[:-3], L * Gt, T)
 
 
-def _system_realization(gens, pc: PointConfig, noise_var, batch: int):
+def _system_realization(gens, pc: PointConfig, noise_var, batch: int, H_ext=None):
     """Channel + training + noise + analog combiner for ``batch``
-    realizations (``plot_errorVSsnr.m:57-73``)."""
-    ch = wideband_mmwave_channel(
-        gens[prng.ROLE_CHANNEL], pc.L, pc.Nr, pc.Nt, pc.n_clusters, pc.n_rays,
-        pc.Gr, pc.Gt, quirks=pc.channel_quirks, batch=(batch,),
-    )
+    realizations (``plot_errorVSsnr.m:57-73``).  ``H_ext``: (batch, L, Nr, Nt)
+    delay taps supplied from outside, used in place of the synthetic channel."""
+    if H_ext is not None:
+        ch = channel_from_taps(H_ext, pc.Gr, pc.Gt)
+    else:
+        ch = wideband_mmwave_channel(
+            gens[prng.ROLE_CHANNEL], pc.L, pc.Nr, pc.Nt, pc.n_clusters, pc.n_rays,
+            pc.Gr, pc.Gt, quirks=pc.channel_quirks, batch=(batch,),
+        )
     Psi = qam4_training_frames(gens[prng.ROLE_TRAINING], pc.Nt, pc.T_prop, pc.L, batch=(batch,))
     N = awgn(gens[prng.ROLE_NOISE], pc.Nr, pc.T_prop, noise_var, batch=(batch,))
     W = create_beamformer(
@@ -127,12 +131,12 @@ def _per_realization(A: torch.Tensor, batch: int) -> torch.Tensor:
     return A.expand(batch, *A.shape[-2:]).contiguous() if A.dim() == 2 else A
 
 
-def _proposed_frontend(gens, pc: PointConfig, noise_var, batch: int, sys_real=None):
+def _proposed_frontend(gens, pc: PointConfig, noise_var, batch: int, H_ext=None, sys_real=None):
     """System realization → random-spatial-sampling observation →
     dictionaries → hyper-parameters (``plot_errorVSsnr.m:125-130``).
     ``sys_real``: an already drawn ``(ch, Psi, N, W)``."""
     use_full_fp32()
-    ch, Psi, N, W = sys_real or _system_realization(gens, pc, noise_var, batch)
+    ch, Psi, N, W = sys_real or _system_realization(gens, pc, noise_var, batch, H_ext)
     obs = proposed_hbf(gens[prng.ROLE_MASK], ch.H, N, Psi, pc.Mr_e, pc.Mr, W)
     A_p, B_p = _dictionaries(ch, obs.W_e, Psi)
     A_p = _per_realization(A_p, batch)
@@ -147,12 +151,14 @@ def _oracle_order(Zbar: torch.Tensor) -> torch.Tensor:
 
 
 def realization_errors(
-    gens, pc: PointConfig, noise_var, batch: int, *, clamp=True, with_zbar=False
+    gens, pc: PointConfig, noise_var, batch: int, H_ext=None, *, clamp=True, with_zbar=False
 ) -> Dict[str, torch.Tensor]:
     """Evaluate the configured estimators on ``batch`` channel realizations.
 
     Returns {method: (batch,) clamped spectral NMSE vs Zbar}; ``clamp=False``
     gives the raw NMSE and ``with_zbar`` adds the true beamspace channel.
+    ``H_ext``: (batch, L, Nr, Nt) external delay taps (NYU-Wireless
+    ingestion) in place of the synthetic channel.
     'omp_td', 'svt' and 'tssr' are not ported yet and raise.
     """
     _check_methods(pc)
@@ -163,7 +169,7 @@ def realization_errors(
     use_full_fp32()
     metric = clamped_nmse if clamp else nmse
     out: Dict[str, torch.Tensor] = {}
-    ch, Psi, N, W = _system_realization(gens, pc, noise_var, batch)
+    ch, Psi, N, W = _system_realization(gens, pc, noise_var, batch, H_ext)
 
     if {"ls", "vamp", "omp_mmv"} & set(pc.methods):
         # conventional branch under the fair training budget T_hbf
@@ -210,11 +216,12 @@ def realization_errors(
     return out
 
 
-def proposed_problem(gens, pc: PointConfig, noise_var, batch: int) -> Dict[str, torch.Tensor]:
+def proposed_problem(gens, pc: PointConfig, noise_var, batch: int, H_ext=None) -> Dict[str, torch.Tensor]:
     """The batched solver problem of the proposed-HBF branch
     (``plot_errorVSsnr.m:48-146``): subY, Omega, A, B, tau_Y, tau_S, rho,
-    Zbar and the Algorithm-3 support rank, as the fused kernel takes them."""
-    ch, obs, A_p, B_p, tau_Y, tau_S, rho = _proposed_frontend(gens, pc, noise_var, batch)
+    Zbar and the Algorithm-3 support rank, as the fused kernel takes them;
+    ``H_ext`` as in :func:`realization_errors`."""
+    ch, obs, A_p, B_p, tau_Y, tau_S, rho = _proposed_frontend(gens, pc, noise_var, batch, H_ext)
     total = pc.Gr * pc.L * pc.Gt
     rank = support_rank_from_order(_oracle_order(ch.Zbar), total).reshape(ch.Zbar.shape)
     return dict(

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from jstsp19_torch.core import prng
-from jstsp19_torch.core.config import resolve_device
+from jstsp19_torch.core.config import COMPLEX_DTYPE, resolve_device
 from jstsp19_torch.harness.pipeline import PointConfig, fused_point_errors, realization_errors
 from jstsp19_torch.kernels import admm_fused
 
@@ -35,6 +35,10 @@ class SweepResult:
     n_mc: int
     seconds: float
     extras: Dict = dataclasses.field(default_factory=dict)
+    # method -> standard deviation over the realizations (ddof 1) per sweep
+    # point, where the run kept it; not written to the JSON, whose schema is
+    # the JAX package's
+    sd: Dict[str, List[float]] = dataclasses.field(default_factory=dict)
 
     def to_json(self) -> str:
         return json.dumps(
@@ -58,13 +62,15 @@ def _jsonable(v) -> bool:
         return False
 
 
-def svt_route(pc: PointConfig) -> str:
+def svt_route(pc: PointConfig, with_taps: bool = False) -> str:
     """The SVT method :func:`run_point` runs ``pc`` with: 'tracked' in place
-    of 'fused' where the fused kernel cannot take the point's shapes
-    (N = Mr_e, M = T·Nt, Gr, K = L·Gt, as ``fused_point_errors`` builds
-    them): N > M, or operands its shared memory cannot hold."""
+    of 'fused' where the point has external taps (the fused route's batch
+    entry draws its own channels) or the fused kernel cannot take the
+    point's shapes (N = Mr_e, M = T·Nt, Gr, K = L·Gt, as
+    ``fused_point_errors`` builds them): N > M, or operands its shared
+    memory cannot hold."""
     N, M, K = pc.Mr_e, pc.T * pc.Nt, pc.L * pc.Gt
-    if pc.svt_method == "fused" and (N > M or not admm_fused.fits(N, M, pc.Gr, K)):
+    if pc.svt_method == "fused" and (with_taps or N > M or not admm_fused.fits(N, M, pc.Gr, K)):
         return "tracked"
     return pc.svt_method
 
@@ -76,6 +82,7 @@ def run_point(
     seed: int = 0,
     sweep_index: int = 0,
     device=None,
+    taps: Optional[torch.Tensor] = None,
 ) -> Dict[str, np.ndarray]:
     """Evaluate one sweep point over ``n_mc`` realizations on ``device``
     (the card unless named; without one it raises unless ``device="cpu"``);
@@ -89,13 +96,21 @@ def run_point(
     ``Nr = Mr_e = Gr = 64``).  Both are decided from the shapes, before any
     launch (:func:`svt_route`).  Every call draws from fresh generators of
     (seed, sweep_index), so both halves see the same realizations.
+
+    ``taps``: (n_mc, L, Nr, Nt) external channels (NYU-Wireless ingestion)
+    in place of the synthetic generator; with them 'fused' runs as
+    'tracked'.  A taps batch other than n_mc raises ValueError.
     """
     device = resolve_device(device)
+    if taps is not None:
+        if taps.shape[0] != n_mc:
+            raise ValueError(f"taps batch {taps.shape[0]} != n_mc {n_mc}")
+        taps = taps.to(device=device, dtype=COMPLEX_DTYPE)
 
     def gens():
         return prng.realization_generators(seed, sweep_index, device)
 
-    pc = dataclasses.replace(pc, svt_method=svt_route(pc))
+    pc = dataclasses.replace(pc, svt_method=svt_route(pc, with_taps=taps is not None))
     if pc.svt_method == "fused":
         out = {}
         fused = tuple(m for m in FUSED_METHODS if m in pc.methods)
@@ -106,7 +121,7 @@ def run_point(
             pcr = dataclasses.replace(pc, methods=rest, svt_method="tracked")
             out.update(realization_errors(gens(), pcr, noise_var, n_mc))
     else:
-        out = realization_errors(gens(), pc, noise_var, n_mc)
+        out = realization_errors(gens(), pc, noise_var, n_mc, H_ext=taps)
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
@@ -142,6 +157,7 @@ def run_sweep(
     verbose: bool = True,
     checkpoint_dir: Optional[str] = None,
     checkpoint_backend: str = "json",
+    taps: Optional[torch.Tensor] = None,
 ) -> SweepResult:
     """Run a full sweep: for each sweep value build the PointConfig, run the
     Monte-Carlo batch and average each method's metric.
@@ -149,7 +165,8 @@ def run_sweep(
     ``checkpoint_dir``: per-point means are journaled there as json and
     completed points are skipped on a re-run.  The verbose line of each
     point ends with its wall time in brackets.  ``extras['raw']`` holds the
-    per-realization errors when every point ran fresh.
+    per-realization errors when every point ran fresh.  ``taps``: external
+    channels for every point, as in :func:`run_point`.
     """
     _check_backend(checkpoint_backend)
     device = resolve_device(device)
@@ -165,7 +182,8 @@ def run_sweep(
             with open(ckpt) as f:
                 point = json.load(f)
         if point is None:
-            out = run_point(point_fn(val), noise_fn(val), n_mc, seed=seed, sweep_index=i, device=device)
+            out = run_point(point_fn(val), noise_fn(val), n_mc, seed=seed, sweep_index=i, device=device,
+                            taps=taps)
             point = {m: float(np.mean(errs)) for m, errs in out.items()}
             for m, errs in out.items():
                 raw.setdefault(m, []).append(np.asarray(errs).tolist())
@@ -184,4 +202,6 @@ def run_sweep(
     )
     if raw and all(len(v) == len(sweep_values) for v in raw.values()):
         res.extras["raw"] = raw
+        if n_mc > 1:
+            res.sd = {m: [float(np.std(p, ddof=1)) for p in points] for m, points in raw.items()}
     return res

@@ -3,9 +3,9 @@
 The JAX package's functions return arrays that ``numpy.asarray`` turns into
 numpy; these helpers turn such numpy inputs into port tensors on a given
 device (and port tensors back into numpy), so both packages can compute on
-the same inputs: the ``proposed_problem`` dict, a ``Channel``, an ``AdmmState``
-and a batch of conventional-branch inputs; and a JAX sweep's JSON artifact
-becomes the port's ``SweepResult``.
+the same inputs: the ``proposed_problem`` dict, a ``Channel``, an ``AdmmState``,
+a batch of conventional-branch inputs and a batch of external channel taps;
+and a JAX sweep's JSON artifact becomes the port's ``SweepResult``.
 
 For the GAMP path: the estimators (``AwgnPrior``, ``CAwgnPrior``,
 ``SparsePrior``, ``CAwgnLikelihood``), the operators (``MatrixOp``,
@@ -95,6 +95,17 @@ def conventional_to_torch(batch: Mapping[str, np.ndarray], device=None) -> Dict[
     """A batch of conventional-branch inputs: the HBF observation Y_c, the
     dictionaries A_c and B_c under the T_hbf budget, and the true Zbar."""
     return {k: to_torch(batch[k], device) for k in CONVENTIONAL_KEYS}
+
+
+def taps_to_torch(taps, device=None) -> torch.Tensor:
+    """A batch of channel taps from the JAX package (``load_nyu_taps``, the
+    synthetic taps of ``error_vs_snr_nyuwireless``), numpy (..., L, Nr, Nt)
+    complex, as a complex64 tensor on ``device``: what ``run_point(taps=)``,
+    ``channel_from_taps`` and ``normalize_taps`` take."""
+    x = np.asarray(taps)
+    if x.ndim < 3 or not np.iscomplexobj(x):
+        raise ValueError(f"taps must be complex (..., L, Nr, Nt), got {x.dtype} of shape {x.shape}")
+    return to_torch(x.astype(np.complex64, copy=False), device)
 
 
 def sweep_result_from_json(doc: Union[str, Mapping]) -> SweepResult:

@@ -19,6 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from jstsp19_tpu.core import prng as jprng  # noqa: E402
 from jstsp19_tpu.frontend import hbf as jhbf  # noqa: E402
+from jstsp19_tpu.harness import experiments as jexp  # noqa: E402
 from jstsp19_tpu.harness import pipeline as jpipe  # noqa: E402
 from jstsp19_torch import interop  # noqa: E402
 from jstsp19_torch.__main__ import main  # noqa: E402
@@ -142,9 +143,9 @@ def test_unported_parts_raise_and_name_their_roadmap_item(tmp_path):
         pipeline.realization_errors(gens, pipeline.PointConfig(methods=("nope",)), 1.0, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 5"):
         runner.set_default_checkpoint(str(tmp_path), "orbax")
-    assert set(EXPERIMENTS) == {
-        "error_vs_snr", "error_vs_snr_quirks", "error_vs_framelength", "error_vs_paths",
-        "error_vs_delays", "error_vs_nt", "error_vs_nrf"}
+    # every JAX recipe but time_comparisons, which needs 'svt' and 'tssr'
+    assert set(EXPERIMENTS) == set(jexp.EXPERIMENTS) - {"time_comparisons"}
+    assert len(EXPERIMENTS) == 18
     jdef, tdef = jpipe.PointConfig(), pipeline.PointConfig()
     for f in ("methods", "num_nonzero", "vamp_nit", "vamp_true_noise", "vamp_damp", "vamp_normal_eq"):
         assert getattr(tdef, f) == getattr(jdef, f)
