@@ -84,7 +84,22 @@ Phases (any failure ends the run with a non-zero exit code and no result):
     kernels' launch counts rose in each ADMM recipe; each recipe's wall
     time; and the approximate front end's 0 dB point (Imax=50, approximate
     mode, B=256) with the kernels on and off on the same generators:
-    per-realization NMSE within rtol 2e-3, atol 2e-4.
+    per-realization NMSE within rtol 2e-3, atol 2e-4;
+16. the fifth slice, the remaining errorVSsnr families: (a) ``python -m
+    jstsp19_torch run error_vs_snr --methods omp_td,svt,tssr --n-mc 256
+    --no-plot``, in-process: exit 0, every value finite and in [0, 1], each
+    method at each of the 11 SNR points within 4 combined standard errors of
+    ``results/torch_families_jax.json``, the wall time of each point; (b)
+    the ``mc_admm`` family (``bench_all.mc_admm_errors``) at the canonical
+    point, B=256, 0 dB, held the same way; (c) the proposed ADMM with
+    ``svt_method='jacobi'`` at the canonical point, B=256, Imax=100, 0 dB:
+    both per-op kernels' launch counts rose, per-realization |ΔNMSE| ≤ 0.02
+    against ``svt_method='eigh'`` on the same problem, the batch mean
+    within 4 SE of ``results/error_vs_snr.json``'s 0 dB point, its wall
+    time; (d) ``time_comparisons`` through the CLI (n_mc 8) and
+    ``python -m jstsp19_torch.bench_all``'s table at B=256 with the latency
+    table at B = 1, 4 and 32, in-process, with the launches of the fused
+    ADMM and the per-op kernels on each.
 
 Then one JSON line with each kernel's launches, error, times and bound (the
 larger of its bytes over 3.35 TB/s and its float32 operations over
@@ -110,6 +125,7 @@ B_CHECK, IMAX_CHECK = 8, 25
 B_MAIN, IMAX_MAIN = 256, 100
 NRF_MR = (4, 8, 12, 16)
 NV_5DB = 10 ** (-0.5)
+NOISE_VAR = 1.0  # 0 dB
 TIMED_CALLS = 200
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth, published
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
@@ -406,6 +422,140 @@ def _special_recipes(root, dev, card, cli, dict_correlation, dict_correlation_pl
     if not ok:
         raise SystemExit("[15] kernels on and off disagree at the approximate front end's 0 dB point")
     return dict(launches, dict_err=dict_err, soft_err=soft_err)
+
+
+def _families(root, dev, card, cli, counters) -> dict:
+    """Phase 16; returns {kernel name: {path: launches}} of this slice's
+    paths. ``counters``: {kernel name: its wrapper}, whose ``launches`` each
+    path sets to 0 just before it runs and reads just after."""
+    import time
+
+    from jstsp19_torch import bench_all
+    from jstsp19_torch.core import prng
+    from jstsp19_torch.core.metrics import clamped_nmse
+    from jstsp19_torch.harness.pipeline import PointConfig, proposed_problem
+    from jstsp19_torch.solvers.admm import proposed_admm
+
+    ref = json.loads((root / "results" / "torch_families_jax.json").read_text())
+    by_path = {name: {} for name in counters}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read(path):
+        for name, fn in counters.items():
+            by_path[name][path] = fn.launches
+
+    # (a) the three families through the CLI
+    snr = ref["error_vs_snr"]["sweep"]["snr_db"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tee = _Tee()
+        with contextlib.redirect_stdout(tee):
+            rc = cli.main(["run", "error_vs_snr", "--methods", "omp_td,svt,tssr", "--n-mc", str(B_MAIN),
+                           "--no-plot", "--out", tmp])
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise SystemExit(f"[16] error_vs_snr: the CLI exited {rc}")
+        res = json.loads((pathlib.Path(tmp) / "error_vs_snr.json").read_text())
+    walls = dict(re.findall(r"snr_db=(-?\d+): .* \[([0-9.]+) s\]", tee.getvalue()))
+    print(f"[16] error_vs_snr omp_td,svt,tssr n_mc {B_MAIN}: wall per point "
+          + ", ".join(f"{s_:g} dB {float(walls[str(int(s_))]):.3f} s" for s_ in snr) + f" (card: {card})")
+    if res["sweep"]["snr_db"] != snr or set(res["curves"]) != set(ref["error_vs_snr"]["curves"]):
+        raise SystemExit("[16] error_vs_snr: the JSON does not hold the reference's sweep and methods")
+    worst = 0.0
+    for m, r in ref["error_vs_snr"]["curves"].items():
+        zs = []
+        for i in range(len(snr)):
+            mean, sd, n = _stats(res["raw"][m][i])
+            se = math.sqrt(r["sd"][i] ** 2 / r["n"][i] + sd**2 / n)
+            val = res["curves"][m][i]
+            z = (mean - r["mean"][i]) / se
+            zs.append(z)
+            if not (math.isfinite(val) and 0.0 <= val <= 1.0 and all(0.0 <= x <= 1.0 for x in res["raw"][m][i])
+                    and abs(z) <= 4):
+                raise SystemExit(f"[16] {m} at {snr[i]} dB: outside [0, 1] or 4 SE of the JAX reference "
+                                 f"(mean {mean:.6f}, JAX {r['mean'][i]:.6f}, z {z:+.2f})")
+        worst = max(worst, max(abs(z) for z in zs))
+        print(f"[16] {m}: means {[round(x, 4) for x in res['curves'][m]]} vs JAX "
+              f"{[round(x, 4) for x in r['mean']]} (n {r['n'][0]}); z {[round(z, 2) for z in zs]}: all within 4 SE")
+
+    # (b) the mc_admm family
+    t0 = time.time()
+    e = bench_all.mc_admm_errors(prng.realization_generators(0, 0, dev), NOISE_VAR, B_MAIN)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    r = ref["mc_admm"]
+    mean, sd, n = _stats(e.double().cpu().tolist())
+    z = (mean - r["mean"]) / math.sqrt(r["sd"] ** 2 / r["n"] + sd**2 / n)
+    ok = bool(torch.isfinite(e).all()) and float(e.min()) >= 0.0 and float(e.max()) <= 1.0 and abs(z) <= 4
+    print(f"[16] mc_admm 0 dB, B={B_MAIN}: mean {mean:.6f} (sd {sd:.4f}) vs JAX {r['mean']:.6f} (sd {r['sd']:.4f}, "
+          f"n {r['n']}): z {z:+.2f}, in [0, 1] and within 4 SE: {ok}; wall {wall:.3f} s (card: {card})")
+    if not ok:
+        raise SystemExit("[16] mc_admm outside [0, 1] or 4 SE of the JAX reference")
+
+    # (c) the proposed ADMM on the Jacobi eigensolver
+    pc = PointConfig(methods=("proposed",))
+    prob = proposed_problem(prng.realization_generators(0, 0, dev), pc, NOISE_VAR, B_MAIN)
+    args = [prob[k] for k in ("subY", "Omega", "A", "B")]
+    hp = [prob[k] for k in ("tau_Y", "tau_S", "rho")]
+    reset()
+    t0 = time.time()
+    S_j = proposed_admm(*args, IMAX_MAIN, *hp, svt_method="jacobi").S
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    read("proposed_admm svt_method='jacobi'")
+    t0 = time.time()
+    S_e = proposed_admm(*args, IMAX_MAIN, *hp, svt_method="eigh").S
+    torch.cuda.synchronize()
+    wall_e = time.time() - t0
+    e_j, e_e = clamped_nmse(S_j, prob["Zbar"]), clamped_nmse(S_e, prob["Zbar"])
+    dev_max = float((e_j - e_e).abs().max())
+    n_dict = by_path["dict_correlation"]["proposed_admm svt_method='jacobi'"]
+    n_soft = by_path["soft_threshold"]["proposed_admm svt_method='jacobi'"]
+    ref_mean, ref_sd, ref_n = _reference_0db(root)
+    mean, sd, n = _stats(e_j.double().cpu().tolist())
+    z = (mean - ref_mean) / math.sqrt(ref_sd**2 / ref_n + sd**2 / n)
+    ok = (n_dict >= IMAX_MAIN and n_soft >= IMAX_MAIN and dev_max <= 0.02 and bool(torch.isfinite(e_j).all())
+          and abs(z) <= 4)
+    print(f"[16] proposed, svt_method='jacobi', B={B_MAIN}, Imax={IMAX_MAIN}: launches dict_correlation {n_dict}, "
+          f"soft_threshold {n_soft}; max per-realization |dNMSE| against 'eigh' {dev_max:.3e} <= 0.02; mean "
+          f"{mean:.6f} vs results/error_vs_snr.json {ref_mean:.6f} (n {ref_n}): z {z:+.2f}; all held: {ok}; wall "
+          f"{wall:.3f} s ('eigh' {wall_e:.3f} s) (card: {card})")
+    if not ok:
+        raise SystemExit("[16] the Jacobi solve: kernels not launched, or NMSE off 'eigh' or the reference")
+
+    # (d) time_comparisons and bench_all
+    with tempfile.TemporaryDirectory() as tmp:
+        reset()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["run", "time_comparisons", "--n-mc", "8", "--no-plot", "--out", tmp])
+        torch.cuda.synchronize()
+        read("time_comparisons")
+        if rc != 0:
+            raise SystemExit(f"[16] time_comparisons: the CLI exited {rc}")
+        tc = json.loads((pathlib.Path(tmp) / "time_comparisons.json").read_text())
+        if not all(math.isfinite(v[0]) and v[0] > 0 for v in tc["curves"].values()):
+            raise SystemExit("[16] time_comparisons: a time is not finite and positive")
+        print(f"[16] time_comparisons (n_mc 8, best of 3 after a warm-up), s a realization: "
+              + ", ".join(f"{m} {v[0]:.6f}" for m, v in tc["curves"].items())
+              + f"; device {tc['device']}; card {tc.get('card')}")
+        reset()
+        out = pathlib.Path(tmp) / "bench_all.json"
+        rc = bench_all.main(["--batch", str(B_MAIN), "--batches", "1,4,32", "--out", str(out)])
+        torch.cuda.synchronize()
+        read("bench_all")
+        if rc != 0:
+            raise SystemExit(f"[16] bench_all exited {rc}")
+        rows = json.loads(out.read_text())["methods"]
+    if set(rows) != set(bench_all.METHODS) or not all(
+            0.0 <= row["mean_nmse_0db"] <= 1.0 and row["est_per_sec"] > 0 for row in rows.values()):
+        raise SystemExit("[16] bench_all: a family is missing, or its NMSE or rate is out of range")
+    for path in ("time_comparisons", "bench_all"):
+        print(f"[16] launches on {path}: " + ", ".join(f"{k} {v[path]}" for k, v in by_path.items()))
+    if by_path["fused_tracked_admm"]["bench_all"] < 1 or by_path["dict_correlation"]["bench_all"] < 1:
+        raise SystemExit("[16] bench_all's proposed and vamp families did not go through their kernels")
+    return by_path
 
 
 class _Tee(io.StringIO):
@@ -876,6 +1026,17 @@ def main() -> int:
         k["max_abs_err"] = max(k["max_abs_err"], err)
         k["launches_by_path"] = {"error_vs_nrf": k["launches"], "specialized recipes": special[name]}
         k["launches"] += special[name]
+
+    # ---- 16. the fifth slice: the remaining errorVSsnr families ------------------------
+    families = _families(root, dev, card, cli, {"fused_tracked_admm": fused_tracked_admm,
+                                                "dict_correlation": dict_correlation,
+                                                "soft_threshold": fused_soft_threshold})
+    kernels[0]["launches_by_path"] = {"canonical point [3]": kernels[0]["launches"]}
+    for k in kernels[:3]:
+        for path, n in families[k["name"]].items():
+            if n:
+                k["launches_by_path"][path] = n
+                k["launches"] += n
 
     kernels.append({
         "name": "fwht",

@@ -6,6 +6,8 @@ Usage:
   python -m jstsp19_torch run all --n-mc 16
   python -m jstsp19_torch run error_vs_nrf --cpu --n-mc 8     # the CPU, plain versions
   python -m jstsp19_torch run error_vs_snr_nyuwireless --mat-path nywireless_channel.mat
+  python -m jstsp19_torch run error_vs_snr --methods omp_td,svt,tssr --n-mc 256 --no-plot
+  python -m jstsp19_torch run time_comparisons --n-mc 8 --no-plot
 
 Without ``--cpu`` a run needs a CUDA device and exits 1 when there is none.
 The JAX CLI's ``demo``, ``panel`` and ``--distributed`` are not ported yet
@@ -37,7 +39,8 @@ def main(argv=None) -> int:
     runp.add_argument("--mat-path", default=None, help="NYU-Wireless channel .mat for error_vs_snr_nyuwireless")
     runp.add_argument(
         "--methods", default=None,
-        help="comma-separated estimator subset (e.g. proposed,vamp) for recipes that accept it",
+        help="comma-separated estimator subset for recipes that accept it, from ls, vamp, omp_mmv, "
+             "omp_td, svt, tssr, proposed, proposed_angles (e.g. omp_td,svt,tssr)",
     )
     args = parser.parse_args(argv)
 

@@ -8,8 +8,8 @@ take ``device=`` where the JAX ones take ``mesh=``: the card unless named.
 The NMSE sweeps go through :func:`run_sweep`; the specialized recipes (rate,
 approximate front end, capacity, energy efficiency, rank, ...) draw each
 sweep point's whole batch from the point's generators
-(:func:`core.prng.realization_generators`) and average it.
-``time_comparisons`` is not ported yet (ROADMAP.md Queue 1, item 4).
+(:func:`core.prng.realization_generators`) and average it;
+``time_comparisons`` times each family through :func:`run_point`.
 """
 from __future__ import annotations
 
@@ -38,13 +38,19 @@ from jstsp19_torch.frontend import (
     proposed_hbf,
     qam4_training_frames,
 )
-from jstsp19_torch.harness.pipeline import PointConfig, _dictionaries, _oracle_order, realization_errors
-from jstsp19_torch.harness.runner import SweepResult, run_sweep
+from jstsp19_torch.harness.pipeline import (
+    DEFAULT_METHODS,
+    PointConfig,
+    _dictionaries,
+    _oracle_order,
+    fastest_point_config,
+    realization_errors,
+)
+from jstsp19_torch.harness.runner import SweepResult, run_point, run_sweep
 from jstsp19_torch.solvers.admm import admm_hyperparams, proposed_admm, proposed_admm_angles
 from jstsp19_torch.solvers.lsq import ls_estimate
 
 EXPERIMENTS: Dict[str, Callable] = {}
-ALL_METHODS = ("ls", "vamp", "omp_mmv", "proposed", "proposed_angles")
 
 
 def _register(name):
@@ -77,7 +83,7 @@ _NV_FRAMELEN_NT_RATE = _nv(15)
 @_register("error_vs_snr")
 def error_vs_snr(n_mc=8, seed=0, device=None, methods=None, **kw):
     """``plot_errorVSsnr.m``: canonical SNR sweep −15:3:15 dB."""
-    base = PointConfig(methods=tuple(methods or ALL_METHODS), **kw)
+    base = PointConfig(methods=tuple(methods or DEFAULT_METHODS), **kw)
     return run_sweep(
         "error_vs_snr", "snr_db", list(range(-15, 16, 3)),
         point_fn=lambda s: base, noise_fn=_nv, n_mc=n_mc, seed=seed, device=device,
@@ -89,7 +95,7 @@ def error_vs_snr_quirks(n_mc=64, seed=0, device=None, methods=None, **kw):
     """``plot_errorVSsnr.m`` under the reference-quirks channel ensemble
     (``channel_quirks=True``, the ensemble of the committed reference
     artifacts; PARITY.md)."""
-    base = PointConfig(methods=tuple(methods or ALL_METHODS), channel_quirks=True, **kw)
+    base = PointConfig(methods=tuple(methods or DEFAULT_METHODS), channel_quirks=True, **kw)
     return run_sweep(
         "error_vs_snr_quirks", "snr_db", list(range(-15, 16, 3)),
         point_fn=lambda s: base, noise_fn=_nv, n_mc=n_mc, seed=seed, device=device,
@@ -103,7 +109,7 @@ def error_vs_framelength(n_mc=8, seed=0, device=None, **kw):
     return run_sweep(
         "error_vs_framelength", "T", [5, 15, 25, 35],
         point_fn=lambda T: PointConfig(
-            Nt=8, Gt=8, T=T, num_nonzero=50, beamformer="fft", methods=ALL_METHODS, **kw),
+            Nt=8, Gt=8, T=T, num_nonzero=50, beamformer="fft", methods=DEFAULT_METHODS, **kw),
         noise_fn=lambda T: _NV_FRAMELEN_NT_RATE, n_mc=n_mc, seed=seed, device=device,
     )
 
@@ -113,7 +119,7 @@ def error_vs_paths(n_mc=8, seed=0, device=None, **kw):
     """``plot_errorVSpaths.m``: rays ∈ {1,3,6,9,12}; noise variance 10^(-5/10)."""
     return run_sweep(
         "error_vs_paths", "n_rays", [1, 3, 6, 9, 12],
-        point_fn=lambda r: PointConfig(n_rays=r, methods=ALL_METHODS, **kw),
+        point_fn=lambda r: PointConfig(n_rays=r, methods=DEFAULT_METHODS, **kw),
         noise_fn=lambda r: _NV_PATHS_DELAYS_NRF, n_mc=n_mc, seed=seed, device=device,
     )
 
@@ -126,7 +132,7 @@ def error_vs_delays(n_mc=8, seed=0, device=None, **kw):
     return run_sweep(
         "error_vs_delays", "L", Ls,
         point_fn=lambda L: PointConfig(
-            L=L, T=5 * (Ls.index(L) + 1), num_nonzero=50, methods=ALL_METHODS, **kw),
+            L=L, T=5 * (Ls.index(L) + 1), num_nonzero=50, methods=DEFAULT_METHODS, **kw),
         noise_fn=lambda L: _NV_PATHS_DELAYS_NRF, n_mc=n_mc, seed=seed, device=device,
     )
 
@@ -139,7 +145,7 @@ def error_vs_nt(n_mc=8, seed=0, device=None, **kw):
     return run_sweep(
         "error_vs_nt", "Nt", [4, 6, 8, 12, 16],
         point_fn=lambda Nt: PointConfig(
-            Nt=Nt, Gt=Nt, T=T_table[Nt], num_nonzero=50, beamformer="fft", methods=ALL_METHODS, **kw),
+            Nt=Nt, Gt=Nt, T=T_table[Nt], num_nonzero=50, beamformer="fft", methods=DEFAULT_METHODS, **kw),
         noise_fn=lambda Nt: _NV_FRAMELEN_NT_RATE, n_mc=n_mc, seed=seed, device=device,
     )
 
@@ -150,7 +156,7 @@ def error_vs_nrf(n_mc=8, seed=0, device=None, **kw):
     variance 10^(-5/10)."""
     return run_sweep(
         "error_vs_nrf", "Mr", [4, 8, 12, 16],
-        point_fn=lambda Mr: PointConfig(Mr=Mr, T=5, methods=ALL_METHODS, **kw),
+        point_fn=lambda Mr: PointConfig(Mr=Mr, T=5, methods=DEFAULT_METHODS, **kw),
         noise_fn=lambda Mr: _NV_PATHS_DELAYS_NRF, n_mc=n_mc, seed=seed, device=device,
     )
 
@@ -494,4 +500,35 @@ def bar3_beamspace(n_mc=1, seed=0, device=None, **kw):
     res = SweepResult("bar3_beamspace", "column", list(range(len(curves["L4_colmax"]))), curves, n_mc,
                       time.time() - t0)
     res.extras.update(extras)
+    return res
+
+
+@_register("time_comparisons")
+def time_comparisons(n_mc=4, seed=0, device=None, reps=3, **kw):
+    """``plot_time_comparisions.m``: wall-clock of each estimator at the
+    canonical config (here: the best of ``reps`` timed batches over the
+    realizations, each family at :func:`fastest_point_config`)."""
+    device = _start(device)
+    t0 = time.time()
+    curves: Dict[str, list] = {}
+    for method in ("ls", "vamp", "omp_mmv", "proposed", "proposed_angles", "svt", "tssr"):
+        pc = fastest_point_config(method)
+        run_point(pc, _nv(0), n_mc, seed=seed, device=device)  # warm-up: builds, caches
+        best = float("inf")
+        for _ in range(reps):
+            t1 = time.time()
+            run_point(pc, _nv(0), n_mc, seed=seed, device=device)  # returns host arrays: synchronised
+            best = min(best, time.time() - t1)
+        curves[method] = [best / n_mc]
+    res = SweepResult("time_comparisons", "seconds_per_realization", [0], curves, n_mc, time.time() - t0)
+    res.extras["device"] = torch.cuda.get_device_name(device) if device.type == "cuda" else str(device)
+    if device.type == "cuda":
+        from jstsp19_torch.bench import card_line
+
+        res.extras["card"] = card_line()
+    res.extras["note"] = (
+        f"latency-bound small-batch numbers (batch={n_mc}): per-realization wall-clock at this batch, not "
+        "peak throughput; the batched throughput of every family at B=256, with its spread, comes from "
+        "`python -m jstsp19_torch.bench_all`"
+    )
     return res

@@ -6,8 +6,9 @@ hyper-parameters → proposed ADMM → clamped NMSE (``plot_errorVSsnr.m:48-167`
 Where the JAX package vmaps one realization, every function here takes
 ``gens`` (one ``torch.Generator`` per role, :func:`core.prng.realization_generators`)
 and a ``batch`` count and works on the whole batch on the generators' device.
-The conventional-HBF baselines (LS, VAMP, MMV-OMP) run on the same
-realizations under the T_hbf training budget (``plot_errorVSsnr.m:73-121``).
+The conventional-HBF baselines (LS, VAMP, MMV-OMP, TD-OMP) run on the same
+realizations under the T_hbf training budget (``plot_errorVSsnr.m:73-121``);
+the completion baselines (SVT, TSSR) on the proposed branch's observation.
 """
 from __future__ import annotations
 
@@ -27,17 +28,14 @@ from jstsp19_torch.solvers.admm import (
     proposed_admm_angles,
     support_rank_from_order,
 )
+from jstsp19_torch.solvers.lowrank import mc_svt
 from jstsp19_torch.solvers.lsq import ls_estimate, pinv
-from jstsp19_torch.solvers.omp import omp_mmv
+from jstsp19_torch.solvers.omp import omp_mmv, omp_td
 from jstsp19_torch.solvers.vamp import vamp_mmwave
 
-PORTED_METHODS = ("ls", "vamp", "omp_mmv", "proposed", "proposed_angles")
-# methods of the JAX package still to port, with their ROADMAP.md item
-UNPORTED_METHODS = {
-    "omp_td": "Queue 1, item 4: 'solvers/omp.py::omp_td'",
-    "svt": "Queue 1, item 4: 'solvers/lowrank.py::mc_svt'",
-    "tssr": "Queue 1, item 4: 'solvers/lowrank.py::mc_svt'",
-}
+# the JAX package's default methods, and every method it evaluates
+DEFAULT_METHODS = ("ls", "vamp", "omp_mmv", "proposed", "proposed_angles")
+PORTED_METHODS = DEFAULT_METHODS + ("omp_td", "svt", "tssr")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +63,7 @@ class PointConfig:
     Imax: int = 100
     num_nonzero: int = 100
     beamformer: str = "ZC"
-    methods: Tuple[str, ...] = PORTED_METHODS
+    methods: Tuple[str, ...] = DEFAULT_METHODS
     admm_mode: str = "approximate"
     svt_method: str = "eigh"
     track_rounds: int = 1
@@ -86,10 +84,25 @@ class PointConfig:
         return matlab_round(self.T / (self.Nr / self.Mr)) * self.Nt
 
 
+def fastest_point_config(method: str) -> PointConfig:
+    """One estimator family at its fastest configuration on the card, for
+    ``bench_all`` and the ``time_comparisons`` recipe: 'fused' for
+    'proposed' and 'proposed_angles' (the fused kernel's route, which
+    ``run_point`` turns into 'tracked' where the kernel cannot take the
+    shapes), 'tracked' for the completion baselines 'svt' and 'tssr', 'eigh'
+    for the rest.  The JAX package names 'tracked' for the proposed
+    methods too; on an H100 the fused route is the faster (PERF.md §5)."""
+    if method.startswith("proposed"):
+        svt_method = "fused"
+    elif method in ("svt", "tssr"):
+        svt_method = "tracked"
+    else:
+        svt_method = "eigh"
+    return PointConfig(methods=(method,), svt_method=svt_method)
+
+
 def _check_methods(pc: PointConfig) -> None:
     for m in pc.methods:
-        if m in UNPORTED_METHODS:
-            raise NotImplementedError(f"method {m!r} is not ported yet (ROADMAP.md {UNPORTED_METHODS[m]})")
         if m not in PORTED_METHODS:
             raise ValueError(f"unknown method {m!r}")
 
@@ -159,7 +172,6 @@ def realization_errors(
     gives the raw NMSE and ``with_zbar`` adds the true beamspace channel.
     ``H_ext``: (batch, L, Nr, Nt) external delay taps (NYU-Wireless
     ingestion) in place of the synthetic channel.
-    'omp_td', 'svt' and 'tssr' are not ported yet and raise.
     """
     _check_methods(pc)
     if pc.svt_method == "fused":
@@ -171,7 +183,7 @@ def realization_errors(
     out: Dict[str, torch.Tensor] = {}
     ch, Psi, N, W = _system_realization(gens, pc, noise_var, batch, H_ext)
 
-    if {"ls", "vamp", "omp_mmv"} & set(pc.methods):
+    if {"ls", "vamp", "omp_mmv", "omp_td"} & set(pc.methods):
         # conventional branch under the fair training budget T_hbf
         # (plot_errorVSsnr.m:73-78)
         Th = pc.T_hbf
@@ -195,8 +207,13 @@ def realization_errors(
             # > Gr saturates at the atom count, so MMV-OMP equals LS there
             S_omp = omp_mmv(A_c, Y_c @ pinv(B_c), min(pc.num_nonzero, pc.Gr)).x
             out["omp_mmv"] = metric(S_omp, ch.Zbar)
+        if "omp_td" in pc.methods:
+            # the figure legends' non-saturating "TD-OMP [11]": single OMP
+            # over the implicit kron dictionary with numOfnz atoms
+            k = min(pc.num_nonzero, pc.Gr * pc.L * pc.Gt)
+            out["omp_td"] = metric(omp_td(A_c, B_c, Y_c, k).x, ch.Zbar)
 
-    if {"proposed", "proposed_angles"} & set(pc.methods):
+    if {"proposed", "proposed_angles", "svt", "tssr"} & set(pc.methods):
         _, obs, A_p, B_p, tau_Y, tau_S, rho = _proposed_frontend(
             gens, pc, noise_var, batch, sys_real=(ch, Psi, N, W))
         kw = dict(
@@ -206,6 +223,18 @@ def realization_errors(
         if "proposed" in pc.methods:
             res = proposed_admm(obs.Y, obs.Omega, A_p, B_p, pc.Imax, tau_Y, tau_S, rho, **kw)
             out["proposed"] = metric(res.S, ch.Zbar)
+        if {"svt", "tssr"} & set(pc.methods):
+            # SVT completion of the masked observation, then LS de-mixing or
+            # joint OMP with 2·nnz atoms: the SVT/TSSR baselines of the
+            # commented blocks of plot_errorVSsnr.m:148-163, on the
+            # configured SVT
+            Y_svt = mc_svt(obs.Y, obs.Omega, pc.Imax, tau_Y, 0.1, svt_method=pc.svt_method,
+                           track_rounds=pc.track_rounds, track_precision=pc.track_precision)
+            if "svt" in pc.methods:
+                out["svt"] = metric(ls_estimate(Y_svt, A_p, B_p), ch.Zbar)
+            if "tssr" in pc.methods:
+                S_tssr = omp_mmv(A_p, Y_svt @ pinv(B_p), min(2 * pc.num_nonzero, pc.Gr)).x
+                out["tssr"] = metric(S_tssr, ch.Zbar)
         if "proposed_angles" in pc.methods:
             res_a = proposed_admm_angles(
                 obs.Y, obs.Omega, _oracle_order(ch.Zbar), A_p, B_p, pc.Imax, tau_Y, tau_S, rho, **kw

@@ -16,8 +16,9 @@ import torch
 
 from jstsp19_torch.kernels.dictionary import dict_correlation, dict_correlation_plain
 from jstsp19_torch.kernels.softthresh import fused_soft_threshold, fused_soft_threshold_plain
+from jstsp19_torch.ops.jacobi import jacobi_svt_fn
 from jstsp19_torch.ops.tracked import make_tracked_svt
-from jstsp19_torch.solvers.lowrank import svt
+from jstsp19_torch.solvers.lowrank import _col, svt
 
 
 class AdmmState(NamedTuple):
@@ -64,11 +65,6 @@ def admm_hyperparams(Y_obs: torch.Tensor, Zbar_ref: torch.Tensor, top_k: int = 6
     return tau_Y, tau_S, rho
 
 
-def _col(x, like: torch.Tensor) -> torch.Tensor:
-    """A batch scalar as a (..., 1, 1) real tensor that broadcasts over matrices."""
-    return torch.as_tensor(x, dtype=like.real.dtype, device=like.device)[..., None, None]
-
-
 def proposed_admm(
     subY: torch.Tensor,
     Omega: torch.Tensor,
@@ -106,9 +102,10 @@ def proposed_admm(
          ``min(base + step·(i+1), Gr·K)`` strongest entries at iteration i.
       track_convergence: log (ε1, ε2, ε3) per iteration.
       init_state: :class:`AdmmState` to resume from.
-      svt_method: 'eigh' (eigendecomposition oracle) or 'tracked' (the
-         warm-started rotation chain of ``ops/tracked.py``).
-         'jacobi' is not ported yet.
+      svt_method: 'eigh' (eigendecomposition oracle), 'jacobi' (the
+         eigh-free Jacobi eigensolver at the solvers' shared sweep count,
+         ``ops/jacobi.py::jacobi_svt_fn``) or 'tracked' (the warm-started
+         rotation chain of ``ops/tracked.py``).
       track_precision: accepted for signature parity; every product of
          the port runs in full float32 whatever its value.
       use_kernels: the correlation Aᴴ·K·Bᴴ and the soft threshold go
@@ -136,13 +133,9 @@ def proposed_admm(
     else:
         raise ValueError(f"unknown mode {mode!r}")
 
-    if svt_method == "jacobi":
-        raise NotImplementedError(
-            "svt_method='jacobi' is not ported yet (ROADMAP.md Queue 1, "
-            "item 3: 'ops/jacobi.py::jacobi_eigh')"
-        )
-    if svt_method not in ("eigh", "tracked"):
+    if svt_method not in ("eigh", "jacobi", "tracked"):
         raise ValueError(f"unknown svt_method {svt_method!r}")
+    svt_fn = jacobi_svt_fn if svt_method == "jacobi" else svt
     tracked = svt_method == "tracked"
 
     total = Gr * K
@@ -179,7 +172,7 @@ def proposed_admm(
         if tracked:
             Y, U = tracked_step(W, thr_Y, U, i)
         else:
-            Y = svt(W, thr_Y)
+            Y = svt_fn(W, thr_Y)
 
         # -- sub 2: masked LS (diagonal solve) -------------------------------
         X = (V1 + rho_c * Y + subY + V2 + rho_c * C + rho_c * (A @ S @ B)) / denom

@@ -24,11 +24,19 @@ _LOG_2PI = math.log(2 * math.pi)
 
 
 def _log(v):
-    return math.log(v) if isinstance(v, (int, float)) else torch.log(v)
+    """``log`` of a number or a tensor; a number outside the domain gives
+    what ``jnp.log`` gives: NaN below 0, −inf at 0."""
+    if isinstance(v, (int, float)):
+        return math.log(v) if v > 0 else (-math.inf if v == 0 else math.nan)
+    return torch.log(v)
 
 
 def _log1p(v):
-    return math.log1p(v) if isinstance(v, (int, float)) else torch.log1p(v)
+    """``log1p`` with ``jnp.log1p``'s values outside the domain: NaN below
+    −1, −inf at −1."""
+    if isinstance(v, (int, float)):
+        return math.log1p(v) if v > -1 else (-math.inf if v == -1 else math.nan)
+    return torch.log1p(v)
 
 
 def _clamp(v, lo=None, hi=None):

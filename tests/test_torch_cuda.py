@@ -463,3 +463,59 @@ def test_specialized_recipes_on_the_card(cuda):
             r = ref[m]
             se = r["sd"][i] * math.sqrt(1.0 / r["n"][i] + 1.0 / n)
             assert math.isfinite(v) and abs(v - r["mean"][i]) <= 4 * se, (m, i, v, r["mean"][i], se)
+
+
+def test_jacobi_route_on_the_card_launches_the_kernels_and_matches_eigh(cuda):
+    """proposed_admm(svt_method='jacobi') at the canonical point, B=16,
+    Imax=50, 10 dB on the card: both per-op kernels launch every iteration,
+    and each realization's NMSE lies within 0.02 of the 'eigh' solve's
+    (tests/test_admm.py::test_admm_jacobi_svt_matches_eigh's limit)."""
+    pc = PointConfig(methods=("proposed",))
+    prob = proposed_problem(prng.realization_generators(0, 0, cuda), pc, 0.1, 16)
+    args = [prob[k] for k in ("subY", "Omega", "A", "B")]
+    hp = [prob[k] for k in ("tau_Y", "tau_S", "rho")]
+    dict_correlation.launches = fused_soft_threshold.launches = 0
+    S_j = proposed_admm(*args, 50, *hp, svt_method="jacobi").S
+    torch.cuda.synchronize()
+    assert dict_correlation.launches >= 50 and fused_soft_threshold.launches >= 50
+    S_e = proposed_admm(*args, 50, *hp, svt_method="eigh").S
+    e_j, e_e = clamped_nmse(S_j, prob["Zbar"]), clamped_nmse(S_e, prob["Zbar"])
+    assert bool(torch.isfinite(e_j).all()) and float((e_j - e_e).abs().max()) < 0.02
+
+
+def test_new_families_on_the_card_match_the_cpu_on_the_same_inputs(cuda):
+    """TD-OMP, the two completions and CoSaMP take the same inputs on the
+    card and on the CPU: on planted sparse problems the same supports and x
+    within 1e-4·max|x|, mc_svt / mc_admm ('tracked') within 1e-4·max|X|;
+    realization_errors runs omp_td, svt and tssr on the card with finite
+    values in [0, 1]."""
+    from jstsp19_torch.solvers.lowrank import mc_admm, mc_svt
+    from jstsp19_torch.solvers.omp import cosamp, omp_td
+
+    gens = prng.realization_generators(0, 0, cuda)
+    out = realization_errors(gens, PointConfig(methods=("omp_td", "svt", "tssr"), svt_method="tracked"), 1.0, 16)
+    for e in out.values():
+        assert e.shape == (16,) and bool(torch.isfinite(e).all()) and 0 <= float(e.min()) <= float(e.max()) <= 1
+    g = torch.Generator().manual_seed(3)
+    A = torch.randn(8, 12, 8, generator=g, dtype=torch.complex64)
+    B = torch.randn(8, 6, 10, generator=g, dtype=torch.complex64)
+    S = torch.zeros(8, 8, 6, dtype=torch.complex64)
+    S[:, 1, 2], S[:, 5, 0], S[:, 3, 4] = 2.0, -1.5j, 1 + 1j
+    r_cpu = omp_td(A, B, A @ S @ B, 3)
+    r_gpu = omp_td(A.to(cuda), B.to(cuda), (A @ S @ B).to(cuda), 3)
+    assert torch.equal(r_cpu.support, r_gpu.support.cpu())
+    assert float((r_cpu.x - r_gpu.x.cpu()).abs().max()) <= 1e-4 * float(r_cpu.x.abs().max())
+    prob = proposed_problem(prng.realization_generators(1, 0, "cpu"), PointConfig(), 1.0, 8)
+    OH, Om, tau = prob["subY"], prob["Omega"], prob["tau_Y"]
+    for fn in (lambda d: mc_svt(OH.to(d), Om.to(d), 30, tau.to(d), 0.1, svt_method="tracked"),
+               lambda d: mc_admm(OH.to(d), OH.to(d), Om.to(d), 30, tau.to(d), prob["rho"].to(d),
+                                 svt_method="tracked")[0]):
+        X_cpu, X_gpu = fn("cpu"), fn(cuda).cpu()
+        assert float((X_cpu - X_gpu).abs().max()) <= 1e-4 * float(X_cpu.abs().max())
+    Ac = torch.randn(4, 64, 128, generator=g, dtype=torch.complex64)
+    Ac = Ac / Ac.abs().pow(2).sum(dim=-2, keepdim=True).sqrt()
+    xs = torch.zeros(4, 128, dtype=torch.complex64)
+    xs[:, (3, 17, 40, 77, 101)] = 3.0 * torch.randn(4, 5, generator=g, dtype=torch.complex64)
+    v = (Ac @ xs[..., None])[..., 0]
+    x_cpu, x_gpu = cosamp(Ac, v, 5), cosamp(Ac.to(cuda), v.to(cuda), 5).cpu()
+    assert float((x_cpu - x_gpu).abs().max()) <= 1e-4 * float(x_cpu.abs().max())

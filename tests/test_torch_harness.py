@@ -86,7 +86,7 @@ def test_run_point_routes():
     nrf = pipeline.PointConfig(Mr=16, T=5, Imax=10, vamp_nit=10, svt_method="fused")
     got = runner.run_point(nrf, NV_5DB, 4, seed=1, device="cpu")
     want = runner.run_point(dataclasses.replace(nrf, svt_method="tracked"), NV_5DB, 4, seed=1, device="cpu")
-    assert set(got) == set(pipeline.PORTED_METHODS)
+    assert set(got) == set(nrf.methods) == set(pipeline.DEFAULT_METHODS)
     for m in got:
         np.testing.assert_array_equal(got[m], want[m])
         assert got[m].shape == (4,) and isinstance(got[m], np.ndarray)
@@ -136,16 +136,17 @@ def test_fused_route_takes_tracked_where_the_kernel_cannot_hold_the_shapes():
 
 def test_unported_parts_raise_and_name_their_roadmap_item(tmp_path):
     gens = prng.realization_generators(0, 0, "cpu")
+    # omp_td, svt and tssr are ported: they run and give one NMSE a realization
     for m in ("omp_td", "svt", "tssr"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 4"):
-            pipeline.realization_errors(gens, pipeline.PointConfig(methods=(m,)), 1.0, 1)
+        out = pipeline.realization_errors(gens, pipeline.PointConfig(methods=(m,), Imax=2), 1.0, 1)
+        assert set(out) == {m} and out[m].shape == (1,)
     with pytest.raises(ValueError, match="unknown method"):
         pipeline.realization_errors(gens, pipeline.PointConfig(methods=("nope",)), 1.0, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 5"):
         runner.set_default_checkpoint(str(tmp_path), "orbax")
-    # every JAX recipe but time_comparisons, which needs 'svt' and 'tssr'
-    assert set(EXPERIMENTS) == set(jexp.EXPERIMENTS) - {"time_comparisons"}
-    assert len(EXPERIMENTS) == 18
+    # the JAX registry, time_comparisons included
+    assert set(EXPERIMENTS) == set(jexp.EXPERIMENTS)
+    assert len(EXPERIMENTS) == 19
     jdef, tdef = jpipe.PointConfig(), pipeline.PointConfig()
     for f in ("methods", "num_nonzero", "vamp_nit", "vamp_true_noise", "vamp_damp", "vamp_normal_eq"):
         assert getattr(tdef, f) == getattr(jdef, f)

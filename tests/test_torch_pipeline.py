@@ -95,8 +95,8 @@ def test_fused_route_equals_tracked_route_on_cpu():
 
 def test_unported_methods_and_routes_raise():
     gens = prng.realization_generators(0, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.realization_errors(gens, pipeline.PointConfig(methods=("omp_td", "proposed"), Imax=2), 1.0, 1)
+    with pytest.raises(ValueError, match="unknown method"):
+        pipeline.realization_errors(gens, pipeline.PointConfig(methods=("omp_tdd", "proposed"), Imax=2), 1.0, 1)
     with pytest.raises(ValueError, match="fused_point_errors"):
         pipeline.realization_errors(
             gens, pipeline.PointConfig(methods=("proposed",), svt_method="fused", Imax=2), 1.0, 1)

@@ -126,7 +126,8 @@ def test_run_point_on_jax_taps_matches_jax_by_ensemble():
 
 
 def test_registry_is_the_jax_one_less_time_comparisons():
-    assert set(experiments.EXPERIMENTS) == set(jexp.EXPERIMENTS) - {"time_comparisons"}
+    # time_comparisons is ported too now: the registry is the JAX one
+    assert set(experiments.EXPERIMENTS) == set(jexp.EXPERIMENTS)
     assert set(NEW_RECIPES) <= set(experiments.EXPERIMENTS)
 
 

@@ -1,5 +1,6 @@
-"""Runs the port's seven sweep recipes through its CLI and holds each to its
-committed JAX run.
+"""Runs the port's sweep recipes (those whose committed JAX run in
+``results/`` keeps its per-realization ``raw`` errors) through its CLI and
+holds each to that run.
 
 For every recipe, ``python -m jstsp19_torch run <recipe> --n-mc N --no-plot
 --out DIR`` in-process, then, for every method at every sweep point, the
@@ -34,7 +35,10 @@ def _mean_var(x):
 def main(argv) -> int:
     n_mc, out, extra = argv[0], argv[1], argv[2:]
     worst = 0.0
-    for name in sorted(EXPERIMENTS):
+    # the sweep recipes: those whose committed JAX run keeps its per-realization errors
+    sweeps = [n for n in sorted(EXPERIMENTS) if (pathlib.Path(REPO) / "results" / f"{n}.json").exists()
+              and "raw" in json.loads((pathlib.Path(REPO) / "results" / f"{n}.json").read_text())]
+    for name in sweeps:
         t0 = time.time()
         rc = cli.main(["run", name, "--n-mc", n_mc, "--no-plot", "--out", out, *extra])
         if rc != 0:
