@@ -100,6 +100,24 @@ Phases (any failure ends the run with a non-zero exit code and no result):
     ``python -m jstsp19_torch.bench_all``'s table at B=256 with the latency
     table at B = 1, 4 and 32, in-process, with the launches of the fused
     ADMM and the per-op kernels on each.
+17. the sixth slice: (a) the precision protocol of the tracked chain
+    (``tools/torch_precision_shapes.py --n-mc 256``, its own process): the
+    four shapes, 'eigh' against 'tracked' at 'highest', 'high' and one TF32
+    pass, the decision for 'default' and whether TF32 changed a result;
+    (b) ``python -m jstsp19_torch run error_vs_nrf --distributed 2 --n-mc
+    256 --no-plot``: exit 0, each rank's backend and device, each rank's
+    ``dict_correlation`` and ``soft_threshold`` launches > 0, every method's
+    per-realization NMSE at every Mr equal to phase [7]'s single-process run
+    within rtol 2e-3, atol 2e-4, the wall time of each point beside phase
+    [7]'s; (c) ``distributed_run_point`` at the canonical point on the fused
+    route over 2 ranks (``parallel/distributed.py``'s worker): each rank's
+    fused-kernel launches > 0, equal to ``run_point`` within the same
+    tolerance; (d) ``python -m jstsp19_torch.parallel.dryrun`` with 1 rank
+    (NCCL) and 2 ranks (gloo, one card): max|ΔS| against the unsharded
+    reference within its tolerance, ``soft_threshold`` launched on each
+    rank; (e) ``panel --batch --n-mc 16 --set methods=ls,proposed``: its
+    means equal ``run_point``'s; (f) ``run error_vs_nrf --checkpoint-backend
+    orbax`` and its resume from the ``.npz`` checkpoints: means bit-equal.
 
 Then one JSON line with each kernel's launches, error, times and bound (the
 larger of its bytes over 3.35 TB/s and its float32 operations over
@@ -558,6 +576,161 @@ def _families(root, dev, card, cli, counters) -> dict:
     return by_path
 
 
+def _subprocess(args, timeout: float) -> str:
+    """Run ``python <args>`` from the checkout, echo its output, and raise on
+    a non-zero exit."""
+    import subprocess
+
+    root = pathlib.Path(__file__).resolve().parent
+    proc = subprocess.run([sys.executable, *args], cwd=root, capture_output=True, text=True, timeout=timeout)
+    out = "".join(ln + "\n" for ln in (proc.stdout + proc.stderr).splitlines() if "hostname of the client" not in ln)
+    sys.stdout.write(out)
+    if proc.returncode != 0:
+        raise SystemExit(f"[17] python {' '.join(args)} exited {proc.returncode}")
+    return out
+
+
+def _rank_launches(out: str) -> list:
+    """Each process's {kernel: launches} from the lines the ranks (and the
+    precision tool) print."""
+    return [{k: int(v) for k, v in re.findall(r"(fused_tracked_admm|dict_correlation|soft_threshold|fwht) (\d+)", ln)}
+            for ln in out.splitlines() if re.match(r"\[(rank|dist worker) \d+\].* launches|\[precision\] wrote", ln)]
+
+
+def _distributed(root, dev, card, cli, nrf_res, nrf_times, counters) -> dict:
+    """Phase 17; returns {kernel name: {path: launches}} of this slice's
+    paths (the ranks' counts summed over the ranks).  ``counters`` as in
+    :func:`_families`."""
+    from jstsp19_torch.harness.pipeline import PointConfig
+    from jstsp19_torch.harness.runner import run_point
+
+    by_path = {name: {} for name in counters}
+
+    def add(path, ranks):
+        for name in counters:
+            by_path[name][path] = sum(r.get(name, 0) for r in ranks)
+
+    def close(a, b) -> bool:
+        return bool(np.allclose(np.asarray(a), np.asarray(b), rtol=2e-3, atol=2e-4))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        # (a) the precision protocol of the tracked chain
+        out = _subprocess(["tools/torch_precision_shapes.py", "--n-mc", str(B_MAIN), "--out", str(tmp / "prec.json")],
+                          900)
+        add("precision protocol [17a]", _rank_launches(out))
+        prec = json.loads((tmp / "prec.json").read_text())
+        dec = prec["decision"]
+        keeps = "keeps one TF32 pass" if dec["default_keeps_tf32"] else "runs float32"
+        moved = dec["max_abs_diff_tf32_vs_highest"]
+        print(f"[17a] decision in this run: 'default' {keeps}; the port ships 'default' -> {dec['shipped']!r}; "
+              f"one TF32 pass against 'highest': max per-realization |dNMSE| {moved:.3e} (TF32 "
+              f"{'changed' if moved > 0 else 'did not change'} a result); the shipped 'default' is 'highest' "
+              f"on the card: {dec['shipped'] == 'fp32'} (card: {card})")
+
+        # (b) the errorVSnrf sweep over 2 ranks sharing the card
+        out = _subprocess(["-m", "jstsp19_torch", "run", "error_vs_nrf", "--distributed", "2", "--n-mc", str(B_MAIN),
+                           "--no-plot", "--out", str(tmp / "nrf")], 900)
+        ranks = _rank_launches(out)
+        backends = re.findall(r"\[rank (\d+)\] backend (\w+), device (\S+?)[;\s]", out)
+        print(f"[17b] ranks: " + ", ".join(f"rank {r} {b} on {d}" for r, b, d in dict.fromkeys(backends))
+              + f"; launches by rank {ranks}")
+        if len(ranks) != 2 or not all(r["dict_correlation"] > 0 and r["soft_threshold"] > 0 for r in ranks):
+            raise SystemExit("[17b] a rank did not launch both per-op kernels")
+        add("error_vs_nrf --distributed 2 [17b]", ranks)
+        res = json.loads((tmp / "nrf" / "error_vs_nrf.json").read_text())
+        walls = dict(re.findall(r"Mr=(\d+): .* \[([0-9.]+) s\]", out))
+        worst = 0.0
+        for m in sorted(nrf_res["raw"]):
+            for i, mr in enumerate(NRF_MR):
+                a, b = np.asarray(res["raw"][m][i]), np.asarray(nrf_res["raw"][m][i])
+                worst = max(worst, float(np.abs(a - b).max()))
+                if a.shape != b.shape or not close(a, b):
+                    raise SystemExit(f"[17b] {m} at Mr={mr}: the 2-rank run differs from phase [7]'s "
+                                     f"(max|d| {float(np.abs(a - b).max()):.3e})")
+        print(f"[17b] every method at every Mr equals phase [7]'s single-process run per realization within "
+              f"rtol 2e-3, atol 2e-4 (max|dNMSE| {worst:.3e}); wall per point, 2 ranks vs one process: "
+              + ", ".join(f"Mr={mr} {float(walls[str(mr)]):.3f} s vs {float(nrf_times[str(mr)]):.3f} s"
+                          for mr in NRF_MR)
+              + f" (card: {card})")
+
+        # (c) a distributed fused point
+        out = _subprocess(["-m", "jstsp19_torch.parallel.launch", "-n", "2", "--timeout", "600", "--",
+                           "-m", "jstsp19_torch.parallel.distributed", "--methods", "proposed,proposed_angles",
+                           "--svt-method", "fused", "--imax", str(IMAX_MAIN), "--n-mc", str(B_MAIN),
+                           "--noise-vars", str(NOISE_VAR), "--out", str(tmp / "fused.json")], 900)
+        ranks = _rank_launches(out)
+        if len(ranks) != 2 or not all(r["fused_tracked_admm"] > 0 for r in ranks):
+            raise SystemExit("[17c] a rank did not launch the fused ADMM kernel")
+        add("distributed fused point [17c]", ranks)
+        res = json.loads((tmp / "fused.json").read_text())
+        pc = PointConfig(methods=("proposed", "proposed_angles"), svt_method="fused")
+        ref = run_point(pc, NOISE_VAR, B_MAIN, seed=0, sweep_index=0, device=dev)
+        for m in pc.methods:
+            a = np.asarray(res["raw"][m][0])
+            if not close(a, ref[m]):
+                raise SystemExit(f"[17c] {m}: the 2-rank fused point differs from run_point")
+            print(f"[17c] {m}: 2 ranks, fused route, B={B_MAIN}: mean {a.mean():.6f} vs run_point "
+                  f"{float(ref[m].mean()):.6f}, max per-realization |dNMSE| {float(np.abs(a - ref[m]).max()):.3e} "
+                  f"within rtol 2e-3, atol 2e-4; point {res['point_seconds'][0]:.3f} s; launches by rank {ranks}")
+
+        # (d) the dryrun: 1 rank on NCCL, 2 ranks on gloo sharing the card
+        for n, backend in ((1, "nccl"), (2, "gloo")):
+            out = _subprocess(["-m", "jstsp19_torch.parallel.dryrun", str(n), "--timeout", "300"], 600)
+            line = next(ln for ln in out.splitlines() if ln.startswith("dryrun "))
+            max_ds = float(line.split("max|dS|=")[1].split()[0])
+            tol = float(line.split("(tolerance ")[1].split()[0])
+            ranks = _rank_launches(out)
+            taken = set(re.findall(r"backend (\w+), device", out))
+            ok = (line.startswith("dryrun ok") and max_ds <= tol and taken == {backend} and len(ranks) == n
+                  and all(r["soft_threshold"] > 0 for r in ranks))
+            print(f"[17d] dryrun {n} rank(s), backend {sorted(taken)}: max|dS| {max_ds:.3e} <= {tol:.3e}; "
+                  f"soft_threshold launches by rank {[r['soft_threshold'] for r in ranks]}; held: {ok}")
+            if not ok:
+                raise SystemExit(f"[17d] the dryrun over {n} rank(s) failed its check")
+            add(f"dryrun {n} rank(s) [17d]", ranks)
+
+        # (e) panel, in-process
+        for fn in counters.values():
+            fn.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["panel", "--batch", "--n-mc", "16", "--set", "methods=ls,proposed"])
+        for name, fn in counters.items():
+            by_path[name]["panel [17e]"] = fn.launches
+        means = {ln.split()[0]: float(ln.split("mean NMSE ")[1].split()[0]) for ln in buf.getvalue().splitlines()
+                 if "mean NMSE" in ln}
+        ref = run_point(PointConfig(methods=("ls", "proposed")), NOISE_VAR, 16, device=dev)
+        want = {m: float(np.mean(v)) for m, v in ref.items()}
+        print(f"[17e] panel --batch --n-mc 16 --set methods=ls,proposed: means {means}, run_point {want}; "
+              f"equal: {means == want}")
+        if rc != 0 or means != want:
+            raise SystemExit("[17e] panel's means differ from run_point's")
+
+        # (f) the orbax (npz) checkpoint round trip, in-process
+        from jstsp19_torch.harness.runner import set_default_checkpoint
+
+        args = ["run", "error_vs_nrf", "--n-mc", "32", "--no-plot", "--checkpoint-dir", str(tmp / "ck"),
+                "--checkpoint-backend", "orbax"]
+        for fn in counters.values():
+            fn.launches = 0
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rcs = [cli.main(args + ["--out", str(tmp / o)]) for o in ("a", "b")]
+        finally:
+            set_default_checkpoint(None)
+        for name, fn in counters.items():
+            by_path[name]["npz checkpoint round trip [17f]"] = fn.launches
+        first, second = (json.loads((tmp / o / "error_vs_nrf.json").read_text()) for o in ("a", "b"))
+        n_ckpt = len(list((tmp / "ck").glob("error_vs_nrf.Mr.*.npz")))
+        ok = rcs == [0, 0] and n_ckpt == len(NRF_MR) and second["curves"] == first["curves"] and "raw" not in second
+        print(f"[17f] run error_vs_nrf --checkpoint-backend orbax, then resumed from {n_ckpt} .npz checkpoints: "
+              f"means bit-equal: {second['curves'] == first['curves']}; held: {ok}")
+        if not ok:
+            raise SystemExit("[17f] the npz checkpoint resume did not give the same means")
+    return by_path
+
+
 class _Tee(io.StringIO):
     """Keeps what is printed and passes it on to the real stdout."""
 
@@ -790,12 +963,13 @@ def main() -> int:
         if rc != 0:
             raise SystemExit(f"[7] the CLI exited {rc}")
         res = json.loads((pathlib.Path(tmp) / "error_vs_nrf.json").read_text())
+    nrf_res = res
     need = len(NRF_MR) * 2 * IMAX_MAIN
     print(f"[7] launches: dict_correlation {dict_launches}, soft_threshold {soft_launches} "
           f"(need >= {need} each)")
     if dict_launches < need or soft_launches < need:
         raise SystemExit("[7] the slice did not go through both kernels")
-    times = dict(re.findall(r"Mr=(\d+): .* \[([0-9.]+) s\]", tee.getvalue()))
+    times = nrf_times = dict(re.findall(r"Mr=(\d+): .* \[([0-9.]+) s\]", tee.getvalue()))
     for mr in NRF_MR:
         print(f"[7] point Mr={mr}: wall {float(times[str(mr)]):.3f} s at n_mc={B_MAIN} (card: {card})")
     ref = _sweep_reference(root, "error_vs_nrf")
@@ -1034,6 +1208,16 @@ def main() -> int:
     kernels[0]["launches_by_path"] = {"canonical point [3]": kernels[0]["launches"]}
     for k in kernels[:3]:
         for path, n in families[k["name"]].items():
+            if n:
+                k["launches_by_path"][path] = n
+                k["launches"] += n
+
+    # ---- 17. the sixth slice: precision, --distributed, the dryrun, panel, npz ----------
+    slice10 = _distributed(root, dev, card, cli, nrf_res, nrf_times, {"fused_tracked_admm": fused_tracked_admm,
+                                                                   "dict_correlation": dict_correlation,
+                                                                   "soft_threshold": fused_soft_threshold})
+    for k in kernels[:3]:
+        for path, n in slice10[k["name"]].items():
             if n:
                 k["launches_by_path"][path] = n
                 k["launches"] += n

@@ -15,6 +15,8 @@ mirrors the JAX package, which stays the reference:
   kernels/   hand-written CUDA kernels (sm_90a) with their plain versions
   harness/   the batched pipeline, the sweep runner, the experiment
              registry and artifacts (``python -m jstsp19_torch``)
+  parallel/  torch.distributed: ranks sharing each sweep point, the launcher,
+             the sharded ADMM step, ring collectives, the dryrun
   interop    numpy bridge from the JAX package's arrays and artifacts
 
 Plain functions on tensors; a batch of realizations is a leading dimension.

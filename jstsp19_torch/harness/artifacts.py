@@ -13,6 +13,16 @@ _LOG_EXPERIMENTS = {
     "error_vs_delays",
     "error_vs_nt",
     "error_vs_nrf",
+    "error_vs_snr_approx",
+    "error_vs_admmiters",
+    "error_vs_snr_nyuwireless",
+}
+
+# linear-scale y-axis labels for non-NMSE experiments
+_YLABELS = {
+    "rate_vs_framelength": "ASE (bits/s/Hz)",
+    "capacity": "ASE (bits/s/Hz)",
+    "energy_efficiency": "EE (bits/Joule)",
 }
 
 
@@ -42,7 +52,7 @@ def _plot(res: SweepResult, path: str) -> None:
             continue
         (ax.semilogy if logy else ax.plot)(res.sweep_values, ys, marker="o", label=method)
     ax.set_xlabel(res.sweep_name)
-    ax.set_ylabel("NMSE" if logy else "value")
+    ax.set_ylabel("NMSE" if logy else _YLABELS.get(res.name, "value"))
     ax.set_title(f"{res.name} (n_mc={res.n_mc})")
     ax.grid(True, which="both", alpha=0.4)
     ax.legend(fontsize=8)

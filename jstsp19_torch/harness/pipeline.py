@@ -46,8 +46,10 @@ class PointConfig:
 
     ``svt_method`` is 'eigh', 'tracked' or 'fused'; 'fused' is the JAX
     package's 'pallas' and runs batch-level through
-    :func:`fused_point_errors`.  ``track_precision`` is accepted for parity:
-    the port runs every product in full float32.
+    :func:`fused_point_errors`.  ``track_precision`` sets the two products
+    of the 'tracked' chain on the card (``ops/tracked.py::PRODUCTS``); the
+    fused kernel runs float32 FMAs whatever its value, as JAX's kernel runs
+    HIGHEST, and the CPU runs everything in float32.
     """
 
     Nt: int = 4
@@ -144,15 +146,34 @@ def _per_realization(A: torch.Tensor, batch: int) -> torch.Tensor:
     return A.expand(batch, *A.shape[-2:]).contiguous() if A.dim() == 2 else A
 
 
-def _proposed_frontend(gens, pc: PointConfig, noise_var, batch: int, H_ext=None, sys_real=None):
+def _draws(gens, pc: PointConfig, noise_var, batch: int, H_ext=None, observe=True, rows=None):
+    """``(ch, Psi, N, W, obs)``: the system realization and, with
+    ``observe``, the proposed receiver's observation (its mask drawn), for
+    ``batch`` realizations.  ``rows`` (a slice) then cuts every batched
+    draw to those realizations: the draws depend on the batch layout
+    (``core/prng.py``), so a slice of the whole batch's draws is how a
+    share of the point sees the realizations the whole batch sees."""
+    ch, Psi, N, W = _system_realization(gens, pc, noise_var, batch, H_ext)
+    obs = proposed_hbf(gens[prng.ROLE_MASK], ch.H, N, Psi, pc.Mr_e, pc.Mr, W) if observe else None
+    if rows is None:
+        return ch, Psi, N, W, obs
+    ch = ch._replace(H=ch.H[rows], Zbar=ch.Zbar[rows], Ar=ch.Ar[rows], At=ch.At[rows])
+    W = W[rows] if W.dim() == 3 else W  # a random combiner is drawn per realization
+    if obs is not None:
+        obs = obs._replace(Y=obs.Y[rows], Omega=obs.Omega[rows], Y_full=obs.Y_full[rows],
+                           W_e=obs.W_e[rows] if obs.W_e.dim() == 3 else obs.W_e)
+    return ch, Psi[rows], N[rows], W, obs
+
+
+def _proposed_frontend(gens, pc: PointConfig, noise_var, batch: int, H_ext=None, draws=None, rows=None):
     """System realization → random-spatial-sampling observation →
     dictionaries → hyper-parameters (``plot_errorVSsnr.m:125-130``).
-    ``sys_real``: an already drawn ``(ch, Psi, N, W)``."""
+    ``draws``: an already drawn ``(ch, Psi, N, W, obs)``; ``rows`` as in
+    :func:`_draws`."""
     use_full_fp32()
-    ch, Psi, N, W = sys_real or _system_realization(gens, pc, noise_var, batch, H_ext)
-    obs = proposed_hbf(gens[prng.ROLE_MASK], ch.H, N, Psi, pc.Mr_e, pc.Mr, W)
+    ch, Psi, _, _, obs = draws or _draws(gens, pc, noise_var, batch, H_ext, rows=rows)
     A_p, B_p = _dictionaries(ch, obs.W_e, Psi)
-    A_p = _per_realization(A_p, batch)
+    A_p = _per_realization(A_p, ch.H.shape[0])
     tau_Y, tau_S, rho = admm_hyperparams(obs.Y, ch.Zbar)
     return ch, obs, A_p, B_p, tau_Y, tau_S, rho * pc.rho_scale
 
@@ -164,14 +185,16 @@ def _oracle_order(Zbar: torch.Tensor) -> torch.Tensor:
 
 
 def realization_errors(
-    gens, pc: PointConfig, noise_var, batch: int, H_ext=None, *, clamp=True, with_zbar=False
+    gens, pc: PointConfig, noise_var, batch: int, H_ext=None, *, rows=None, clamp=True, with_zbar=False
 ) -> Dict[str, torch.Tensor]:
     """Evaluate the configured estimators on ``batch`` channel realizations.
 
     Returns {method: (batch,) clamped spectral NMSE vs Zbar}; ``clamp=False``
     gives the raw NMSE and ``with_zbar`` adds the true beamspace channel.
     ``H_ext``: (batch, L, Nr, Nt) external delay taps (NYU-Wireless
-    ingestion) in place of the synthetic channel.
+    ingestion) in place of the synthetic channel.  ``rows``: a slice of the
+    batch; only those realizations are solved, on the whole batch's draws
+    (:func:`_draws`), and the outputs have their length.
     """
     _check_methods(pc)
     if pc.svt_method == "fused":
@@ -181,7 +204,10 @@ def realization_errors(
     use_full_fp32()
     metric = clamped_nmse if clamp else nmse
     out: Dict[str, torch.Tensor] = {}
-    ch, Psi, N, W = _system_realization(gens, pc, noise_var, batch, H_ext)
+    proposed_branch = bool({"proposed", "proposed_angles", "svt", "tssr"} & set(pc.methods))
+    draws = _draws(gens, pc, noise_var, batch, H_ext, observe=proposed_branch, rows=rows)
+    ch, Psi, N, W, _ = draws
+    batch = ch.H.shape[0]
 
     if {"ls", "vamp", "omp_mmv", "omp_td"} & set(pc.methods):
         # conventional branch under the fair training budget T_hbf
@@ -213,9 +239,8 @@ def realization_errors(
             k = min(pc.num_nonzero, pc.Gr * pc.L * pc.Gt)
             out["omp_td"] = metric(omp_td(A_c, B_c, Y_c, k).x, ch.Zbar)
 
-    if {"proposed", "proposed_angles", "svt", "tssr"} & set(pc.methods):
-        _, obs, A_p, B_p, tau_Y, tau_S, rho = _proposed_frontend(
-            gens, pc, noise_var, batch, sys_real=(ch, Psi, N, W))
+    if proposed_branch:
+        _, obs, A_p, B_p, tau_Y, tau_S, rho = _proposed_frontend(gens, pc, noise_var, batch, draws=draws)
         kw = dict(
             mode=pc.admm_mode, svt_method=pc.svt_method, track_rounds=pc.track_rounds,
             track_precision=pc.track_precision,
@@ -245,12 +270,12 @@ def realization_errors(
     return out
 
 
-def proposed_problem(gens, pc: PointConfig, noise_var, batch: int, H_ext=None) -> Dict[str, torch.Tensor]:
+def proposed_problem(gens, pc: PointConfig, noise_var, batch: int, H_ext=None, rows=None) -> Dict[str, torch.Tensor]:
     """The batched solver problem of the proposed-HBF branch
     (``plot_errorVSsnr.m:48-146``): subY, Omega, A, B, tau_Y, tau_S, rho,
     Zbar and the Algorithm-3 support rank, as the fused kernel takes them;
-    ``H_ext`` as in :func:`realization_errors`."""
-    ch, obs, A_p, B_p, tau_Y, tau_S, rho = _proposed_frontend(gens, pc, noise_var, batch, H_ext)
+    ``H_ext`` and ``rows`` as in :func:`realization_errors`."""
+    ch, obs, A_p, B_p, tau_Y, tau_S, rho = _proposed_frontend(gens, pc, noise_var, batch, H_ext, rows=rows)
     total = pc.Gr * pc.L * pc.Gt
     rank = support_rank_from_order(_oracle_order(ch.Zbar), total).reshape(ch.Zbar.shape)
     return dict(
@@ -259,11 +284,12 @@ def proposed_problem(gens, pc: PointConfig, noise_var, batch: int, H_ext=None) -
     )
 
 
-def fused_point_errors(gens, pc: PointConfig, noise_var, batch: int) -> Dict[str, torch.Tensor]:
+def fused_point_errors(gens, pc: PointConfig, noise_var, batch: int, rows=None) -> Dict[str, torch.Tensor]:
     """Batch-level proposed / proposed_angles evaluation on the fused
     tracked-SVT ADMM (``kernels/admm_fused.py``) — the JAX package's
     ``svt_method='pallas'`` route.  On CUDA generators the solve is the
-    CUDA kernel; on CPU ones its plain version."""
+    CUDA kernel; on CPU ones its plain version.  ``rows`` as in
+    :func:`realization_errors`."""
     from jstsp19_torch.kernels.admm_fused import fused_tracked_admm
 
     _check_methods(pc)
@@ -272,7 +298,7 @@ def fused_point_errors(gens, pc: PointConfig, noise_var, batch: int) -> Dict[str
             "the fused route implements only admm_mode='approximate' "
             f"(the kernel's sparse-code update); got {pc.admm_mode!r}"
         )
-    prob = proposed_problem(gens, pc, noise_var, batch)
+    prob = proposed_problem(gens, pc, noise_var, batch, rows=rows)
     args = (prob["subY"], prob["Omega"], prob["A"], prob["B"], prob["tau_Y"], prob["tau_S"], prob["rho"])
     out = {}
     if "proposed" in pc.methods:

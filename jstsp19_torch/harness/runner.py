@@ -3,9 +3,11 @@
 The reference parallelizes with a MATLAB ``parfor`` over realizations
 (``plot_errorVSsnr_approx.m:41``); here one sweep point is one batch of
 ``n_mc`` realizations on one device, and the curve value is the batch mean
-(``plot_errorVSsnr.m:170-178``).  The JAX package's mesh and multi-process
-branches and its orbax checkpoint backend are not ported (ROADMAP.md Queue 1,
-items 5-6).
+(``plot_errorVSsnr.m:170-178``).  Under ``--distributed`` (after
+:func:`set_distributed_mesh`) each point's realizations are shared out over
+the ranks (``parallel/distributed.py``).  The JAX package's single-process
+``mesh=`` (several local devices) is not ported: the card's machine has one
+card (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -75,6 +77,20 @@ def svt_route(pc: PointConfig, with_taps: bool = False) -> str:
     return pc.svt_method
 
 
+# process-wide multi-process mode: set by the CLI's --distributed workers (or
+# any program that joined a process group); run_point then shares each point
+# out over the ranks and run_sweep's writes are left to rank 0
+_DISTRIBUTED = {"mesh": None}
+
+
+def set_distributed_mesh(mesh) -> None:
+    """Route later :func:`run_point` calls through
+    ``parallel/distributed.py::distributed_run_point`` on ``mesh`` (a
+    one-dimensional ``DeviceMesh`` over every rank,
+    ``distributed.global_mc_mesh()``); ``None`` restores one process."""
+    _DISTRIBUTED["mesh"] = mesh
+
+
 def run_point(
     pc: PointConfig,
     noise_var: float,
@@ -83,6 +99,7 @@ def run_point(
     sweep_index: int = 0,
     device=None,
     taps: Optional[torch.Tensor] = None,
+    rows: Optional[slice] = None,
 ) -> Dict[str, np.ndarray]:
     """Evaluate one sweep point over ``n_mc`` realizations on ``device``
     (the card unless named; without one it raises unless ``device="cpu"``);
@@ -100,7 +117,17 @@ def run_point(
     ``taps``: (n_mc, L, Nr, Nt) external channels (NYU-Wireless ingestion)
     in place of the synthetic generator; with them 'fused' runs as
     'tracked'.  A taps batch other than n_mc raises ValueError.
+
+    ``rows``: solve only this slice of the point's realizations, on the
+    whole point's draws; the arrays then have its length.  Under
+    :func:`set_distributed_mesh` (and without ``rows``) every rank solves
+    its share and every rank returns the whole point.
     """
+    if _DISTRIBUTED["mesh"] is not None and rows is None:
+        from jstsp19_torch.parallel.distributed import distributed_run_point
+
+        return distributed_run_point(pc, noise_var, n_mc, seed=seed, sweep_index=sweep_index, device=device,
+                                     taps=taps, mesh=_DISTRIBUTED["mesh"])
     device = resolve_device(device)
     if taps is not None:
         if taps.shape[0] != n_mc:
@@ -115,34 +142,43 @@ def run_point(
         out = {}
         fused = tuple(m for m in FUSED_METHODS if m in pc.methods)
         if fused:
-            out.update(fused_point_errors(gens(), dataclasses.replace(pc, methods=fused), noise_var, n_mc))
+            out.update(fused_point_errors(gens(), dataclasses.replace(pc, methods=fused), noise_var, n_mc, rows=rows))
         rest = tuple(m for m in pc.methods if m not in FUSED_METHODS)
         if rest:
             pcr = dataclasses.replace(pc, methods=rest, svt_method="tracked")
-            out.update(realization_errors(gens(), pcr, noise_var, n_mc))
+            out.update(realization_errors(gens(), pcr, noise_var, n_mc, rows=rows))
     else:
-        out = realization_errors(gens(), pc, noise_var, n_mc, H_ext=taps)
+        out = realization_errors(gens(), pc, noise_var, n_mc, H_ext=taps, rows=rows)
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
-# process-wide checkpoint default, so the CLI can enable sweep resume
+# process-wide checkpoint defaults, so the CLI can enable sweep resume
 # without threading kwargs through every experiment recipe
-_DEFAULT_CHECKPOINT = {"dir": None}
-
-
-def _check_backend(backend: str) -> None:
-    if backend == "orbax":
-        raise NotImplementedError(
-            "the orbax checkpoint backend is not ported yet (ROADMAP.md Queue 1, item 5)")
-    if backend != "json":
-        raise ValueError(f"unknown checkpoint backend {backend!r}")
+_DEFAULT_CHECKPOINT = {"dir": None, "backend": "json"}
+CHECKPOINT_BACKENDS = ("json", "orbax")
 
 
 def set_default_checkpoint(directory: Optional[str], backend: str = "json") -> None:
-    """Set the checkpoint directory used by every later :func:`run_sweep`
-    call that does not pass its own; only the json backend is ported."""
-    _check_backend(backend)
+    """Set the checkpoint directory and backend used by every later
+    :func:`run_sweep` call that does not pass its own."""
+    if backend not in CHECKPOINT_BACKENDS:
+        raise ValueError(f"unknown checkpoint backend {backend!r}")
     _DEFAULT_CHECKPOINT["dir"] = directory
+    _DEFAULT_CHECKPOINT["backend"] = backend
+
+
+def primary_process() -> bool:
+    """Whether this process writes: the only one, or rank 0 of a process group."""
+    dist = torch.distributed
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
+def _save_arrays(path: str, arrays: Dict[str, np.ndarray]) -> None:
+    """{method: (n_mc,) errors} as one ``.npz``, written whole or not at all."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
 
 
 def run_sweep(
@@ -156,41 +192,62 @@ def run_sweep(
     device=None,
     verbose: bool = True,
     checkpoint_dir: Optional[str] = None,
-    checkpoint_backend: str = "json",
+    checkpoint_backend: Optional[str] = None,
     taps: Optional[torch.Tensor] = None,
 ) -> SweepResult:
     """Run a full sweep: for each sweep value build the PointConfig, run the
     Monte-Carlo batch and average each method's metric.
 
-    ``checkpoint_dir``: per-point means are journaled there as json and
-    completed points are skipped on a re-run.  The verbose line of each
-    point ends with its wall time in brackets.  ``extras['raw']`` holds the
-    per-realization errors when every point ran fresh.  ``taps``: external
-    channels for every point, as in :func:`run_point`.
+    ``checkpoint_dir``: per-point results are journaled there and completed
+    points are skipped on a re-run.  ``checkpoint_backend`` (default: the
+    one :func:`set_default_checkpoint` set): ``"json"`` journals each
+    point's means as ``<name>.<sweep>.<i>.json``; ``"orbax"`` keeps each
+    point's per-realization errors, {method: (n_mc,) array}, as
+    ``<name>.<sweep>.<i>.npz`` through numpy (JAX's backend stores the same
+    content through orbax, which needs JAX; the value keeps its name so
+    the two CLIs take the same flags), and a restore gives the means
+    bit-exactly.  Under ``--distributed`` only rank 0 writes and prints;
+    every rank reads, so every rank skips the same points.  The verbose
+    line of each point ends with its wall time in brackets.
+    ``extras['raw']`` holds the per-realization errors when every point
+    ran fresh.  ``taps``: external channels for every point, as in
+    :func:`run_point`.
     """
-    _check_backend(checkpoint_backend)
-    device = resolve_device(device)
     checkpoint_dir = checkpoint_dir or _DEFAULT_CHECKPOINT["dir"]
+    backend = checkpoint_backend or _DEFAULT_CHECKPOINT["backend"]
+    if backend not in CHECKPOINT_BACKENDS:
+        raise ValueError(f"unknown checkpoint backend {backend!r}")
+    device = resolve_device(device)
+    primary = primary_process()
+    verbose = verbose and primary
+    ext = ".json" if backend == "json" else ".npz"
     t0 = time.time()
     curves: Dict[str, List[float]] = {}
     raw: Dict[str, List[List[float]]] = {}
     for i, val in enumerate(sweep_values):
         t_point = time.time()
-        ckpt = os.path.join(checkpoint_dir, f"{name}.{sweep_name}.{i}.json") if checkpoint_dir else None
+        ckpt = os.path.join(checkpoint_dir, f"{name}.{sweep_name}.{i}{ext}") if checkpoint_dir else None
         point = None
         if ckpt and os.path.exists(ckpt):
-            with open(ckpt) as f:
-                point = json.load(f)
+            if backend == "json":
+                with open(ckpt) as f:
+                    point = json.load(f)
+            else:
+                with np.load(ckpt) as arrays:
+                    point = {m: float(np.mean(arrays[m])) for m in arrays.files}
         if point is None:
             out = run_point(point_fn(val), noise_fn(val), n_mc, seed=seed, sweep_index=i, device=device,
                             taps=taps)
             point = {m: float(np.mean(errs)) for m, errs in out.items()}
             for m, errs in out.items():
                 raw.setdefault(m, []).append(np.asarray(errs).tolist())
-            if ckpt:
+            if ckpt and primary:
                 os.makedirs(checkpoint_dir, exist_ok=True)
-                with open(ckpt, "w") as f:
-                    json.dump(point, f)
+                if backend == "json":
+                    with open(ckpt, "w") as f:
+                        json.dump(point, f)
+                else:
+                    _save_arrays(ckpt, {m: np.asarray(errs) for m, errs in out.items()})
         for m, mean_err in point.items():
             curves.setdefault(m, []).append(mean_err)
         if verbose:

@@ -106,8 +106,10 @@ def proposed_admm(
          eigh-free Jacobi eigensolver at the solvers' shared sweep count,
          ``ops/jacobi.py::jacobi_svt_fn``) or 'tracked' (the warm-started
          rotation chain of ``ops/tracked.py``).
-      track_precision: accepted for signature parity; every product of
-         the port runs in full float32 whatever its value.
+      track_precision: the precision of the tracked chain's two products on
+         the card ('highest' full float32, 'high' 3xTF32, 'default' as
+         ``ops/tracked.py::PRODUCTS`` decides; float32 on the CPU); every
+         other product runs in full float32.
       use_kernels: the correlation Aᴴ·K·Bᴴ and the soft threshold go
          through their kernels' wrappers (``kernels/dictionary.py``,
          ``kernels/softthresh.py``: the CUDA kernels on CUDA tensors);

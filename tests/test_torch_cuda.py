@@ -519,3 +519,34 @@ def test_new_families_on_the_card_match_the_cpu_on_the_same_inputs(cuda):
     v = (Ac @ xs[..., None])[..., 0]
     x_cpu, x_gpu = cosamp(Ac, v, 5), cosamp(Ac.to(cuda), v.to(cuda), 5).cpu()
     assert float((x_cpu - x_gpu).abs().max()) <= 1e-4 * float(x_cpu.abs().max())
+
+
+def test_tracked_chain_precisions_on_the_card(cuda):
+    """The chain's two products on the card: 'highest' is the complex64
+    product, 3xTF32 is float32-accurate, one TF32 pass differs from float32
+    by TF32's rounding, and TF32 is off again after each call."""
+    from jstsp19_torch.ops import tracked
+
+    U = torch.linalg.qr(_crandn(cuda, 64, 32, 32, seed=1))[0]
+    W = _crandn(cuda, 64, 32, 140, seed=2)
+    exact = U.mH.to(torch.complex128) @ W.to(torch.complex128)
+    scale = float(exact.abs().max())
+    errs = {}
+    for mode in ("fp32", "3xtf32", "tf32"):
+        got = tracked.chain_product(U.mH, W, mode)
+        assert not torch.backends.cuda.matmul.allow_tf32
+        errs[mode] = float((got.to(torch.complex128) - exact).abs().max()) / scale
+    assert torch.equal(tracked.chain_product(U.mH, W, "fp32"), U.mH @ W)
+    assert errs["fp32"] < 1e-5 and errs["3xtf32"] < 1e-5
+    assert 1e-5 < errs["tf32"] < 1e-2
+    assert tracked.PRODUCTS["default"] == "fp32"  # the eigh-oracle decision (PERF.md §6)
+
+
+def test_dryrun_one_rank_on_nccl(cuda):
+    import subprocess
+    import sys
+
+    proc = subprocess.run([sys.executable, "-m", "jstsp19_torch.parallel.dryrun", "1", "--timeout", "300"],
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "backend nccl, device cuda:0" in proc.stdout and "dryrun ok: mesh(dp=1,sp=1,tp=1)" in proc.stdout

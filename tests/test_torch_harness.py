@@ -134,7 +134,7 @@ def test_fused_route_takes_tracked_where_the_kernel_cannot_hold_the_shapes():
     assert runner.svt_route(dataclasses.replace(big, svt_method="eigh")) == "eigh"
 
 
-def test_unported_parts_raise_and_name_their_roadmap_item(tmp_path):
+def test_unported_parts_raise_and_name_their_roadmap_item(capsys):
     gens = prng.realization_generators(0, 0, "cpu")
     # omp_td, svt and tssr are ported: they run and give one NMSE a realization
     for m in ("omp_td", "svt", "tssr"):
@@ -142,8 +142,10 @@ def test_unported_parts_raise_and_name_their_roadmap_item(tmp_path):
         assert set(out) == {m} and out[m].shape == (1,)
     with pytest.raises(ValueError, match="unknown method"):
         pipeline.realization_errors(gens, pipeline.PointConfig(methods=("nope",)), 1.0, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 5"):
-        runner.set_default_checkpoint(str(tmp_path), "orbax")
+    # demo runs examples/, whose solvers are item 7's: it exits 1 naming it
+    capsys.readouterr()
+    assert main(["demo"]) == 1
+    assert "ROADMAP.md Queue 1, item 7" in capsys.readouterr().err
     # the JAX registry, time_comparisons included
     assert set(EXPERIMENTS) == set(jexp.EXPERIMENTS)
     assert len(EXPERIMENTS) == 19
