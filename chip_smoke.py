@@ -118,6 +118,20 @@ Phases (any failure ends the run with a non-zero exit code and no result):
     rank; (e) ``panel --batch --n-mc 16 --set methods=ls,proposed``: its
     means equal ``run_point``'s; (f) ``run error_vs_nrf --checkpoint-backend
     orbax`` and its resume from the ``.npz`` checkpoints: means bit-equal.
+18. the seventh slice, mean removal and the estimator library: (a) phase
+    11's problems through ``gamp_est(..., GampOptions(remove_mean=True))``
+    (``DemeanRCOp`` around ``SubsetOp(FWHTOp)``: 6 FWHT launches an
+    iteration, and 2 to build it): ``fwht_kernel.launches`` rose by at least
+    6 × the iterations run + 2; every NMSE finite; the per-realization NMSE
+    within 1% of the same solve with the kernel off; the batch mean NMSE
+    (dB) within 4 combined standard errors of
+    ``results/torch_gamp_demean_jax.json``; (b) that solve and phase 11's
+    ``GampOptions()`` solve timed with CUDA events (5 reps after a warm-up),
+    the kernel on and off in turns; (c) every one of the 45 estimators
+    (``harness/estim_check.py``) at (32, 65536): ``estim`` and whichever of
+    ``estim_map``, ``loglike`` and ``logscale`` it has, on the card against
+    the CPU on the same inputs, max|Δ| ≤ 1e-5·max|ref| for the closed forms
+    and 1e-4 for the tails, quadrature and particle forms.
 
 Then one JSON line with each kernel's launches, error, times and bound (the
 larger of its bytes over 3.35 TB/s and its float32 operations over
@@ -739,6 +753,73 @@ class _Tee(io.StringIO):
         return super().write(s)
 
 
+def _mean_removal(root, dev, card, prob_cs, routes) -> int:
+    """Phase 18; returns the FWHT launches of the mean-removal solve."""
+    from jstsp19_torch.bench import REPS, cuda_event_times
+    from jstsp19_torch.harness import hadamard_cs as hcs
+    from jstsp19_torch.harness.estim_check import compare_devices, estimator_cases
+    from jstsp19_torch.kernels.wht import fwht_kernel
+    from jstsp19_torch.solvers.gamp_full import GampOptions, gamp_est
+
+    def solve(flag, remove_mean=True):
+        prior, like, op = routes[flag]
+        fin, _, _ = gamp_est(prior, like, op, GampOptions(remove_mean=remove_mean))
+        return fin.xhat, int(fin.nit.max())
+
+    # (a) the solve through the kernel, against the kernel off and JAX
+    fwht_kernel.launches = 0
+    xhat, its = solve(True)
+    torch.cuda.synchronize()
+    launches = fwht_kernel.launches
+    need = 6 * its + 2
+    print(f"[18a] gamp_est(remove_mean=True): fwht_kernel launches = {launches} over {its} iterations "
+          f"(need >= 6 x {its} + 2 = {need})")
+    if launches < need:
+        raise SystemExit("[18a] mean removal did not go through the FWHT kernel")
+    xhat_off, its_off = solve(False)
+    e_on = hcs.nmse_db(xhat.cpu().numpy(), prob_cs["x"])
+    e_off = hcs.nmse_db(xhat_off.cpu().numpy(), prob_cs["x"])
+    lin_on, lin_off = 10 ** (e_on / 10), 10 ** (e_off / 10)
+    rel = float(np.max(np.abs(lin_on - lin_off) / lin_off))
+    ok = bool(np.all(np.isfinite(e_on)) and rel <= 0.01)
+    print(f"[18a] NMSE kernel on {e_on.mean():.4f} dB ({its} iterations), off {e_off.mean():.4f} dB ({its_off}); "
+          f"max per-realization relative |dNMSE| = {rel:.3e}; finite and within 1%: {ok}")
+    if not ok:
+        raise SystemExit("[18a] NMSE not finite or kernel on and off disagree")
+    r = json.loads((root / "results" / "torch_gamp_demean_jax.json").read_text())["gamp_est"]
+    mean, sd, n = float(e_on.mean()), float(e_on.std(ddof=1)), e_on.size
+    se = math.sqrt(r["sd_db"] ** 2 / len(r["nmse_db"]) + sd**2 / n)
+    inside = abs(mean - r["mean_db"]) <= 4 * se
+    worst = float(np.max(np.abs(e_on - np.asarray(r["nmse_db"]))))
+    print(f"[18a] batch mean {mean:.4f} dB (sd {sd:.4f}, n {n}) vs JAX {r['mean_db']:.4f} dB (sd {r['sd_db']:.4f}, "
+          f"{min(r['nit'])}-{max(r['nit'])} iterations): z {(mean - r['mean_db']) / se:+.2f}, within 4 SE: "
+          f"{inside}; largest per-realization |d dB| against JAX {worst:.4f}")
+    if not inside:
+        raise SystemExit("[18a] batch mean NMSE outside 4 SE of the JAX reference")
+
+    # (b) the cost of mean removal: both solves, the kernel on and off in turns
+    for label, flag in (("kernel on", True), ("kernel off", False), ("kernel on", True), ("kernel off", False)):
+        for rm in (False, True):
+            t, outs = cuda_event_times(lambda _: solve(flag, rm), REPS)
+            best, median = min(t), sorted(t)[len(t) // 2]
+            print(f"[18b] gamp_est {'GampOptions(remove_mean=True)' if rm else 'GampOptions()'} "
+                  f"({outs[0][1]} iterations), {label}: best {best * 1e3:.3f} ms, median {median * 1e3:.3f} ms, "
+                  f"spread {(max(t) - best) * 1e3:.3f} ms over {REPS} reps (card: {card})")
+
+    # (c) the 45 estimators on the card against the CPU
+    misses = []
+    for case in estimator_cases(hcs.BATCH, hcs.N):
+        c = compare_devices(case, dev)
+        print(f"[18c] {c.name}: {'/'.join(c.hooks)}: max|d| {c.max_abs_err:.3e} <= {c.tol:g}*max|ref| "
+              f"{c.tol * c.scale:.3e}: {c.ok}")
+        if not c.ok:
+            misses.append(c.name)
+    if misses:
+        raise SystemExit(f"[18c] the card and the CPU disagree: {misses}")
+    print(f"[18c] all 45 estimators agree between the card and the CPU at (32, 65536) (card: {card})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the GPU", file=sys.stderr)
@@ -1222,12 +1303,16 @@ def main() -> int:
                 k["launches_by_path"][path] = n
                 k["launches"] += n
 
+    # ---- 18. the seventh slice: mean removal and the estimator library --------------
+    demean_launches = _mean_removal(root, dev, card, prob_cs, routes)
+
     kernels.append({
         "name": "fwht",
         "route": "cuda",
         "source": "jstsp19_torch/kernels/csrc/fwht.cu",
         "replaces": "jstsp19_tpu/kernels/wht.py:46",
-        "launches": fwht_launches,
+        "launches": fwht_launches + demean_launches,
+        "launches_by_path": {"partial Hadamard GAMP [11]": fwht_launches, "mean removal [18]": demean_launches},
         "max_abs_err": fwht_err,
         "ms": fwht_ms,
         "plain_ms": fwht_plain_ms,

@@ -7,10 +7,12 @@ the same inputs: the ``proposed_problem`` dict, a ``Channel``, an ``AdmmState``,
 a batch of conventional-branch inputs and a batch of external channel taps;
 and a JAX sweep's JSON artifact becomes the port's ``SweepResult``.
 
-For the GAMP path: the estimators (``AwgnPrior``, ``CAwgnPrior``,
-``SparsePrior``, ``CAwgnLikelihood``), the operators (``MatrixOp``,
-``AdjointOp``, ``ScaledOp``, ``ComposedOp``, ``MaskOp``, ``DiagOp``,
-``IdentityOp``, ``SubsetOp``, ``UnifVarOp``, ``FWHTOp``, ``DFTOp``,
+For the GAMP path: all 45 estimators of ``solvers/estim.py`` (nested ones
+included; a callable field such as ``denoise`` or ``out_fn`` is supplied by
+the caller as a torch callable, and ``FxnhandlePrior``'s JAX key becomes a
+``torch.Generator``), the operators (``MatrixOp``, ``AdjointOp``,
+``ScaledOp``, ``ComposedOp``, ``MaskOp``, ``DiagOp``, ``IdentityOp``,
+``SubsetOp``, ``DemeanRCOp``, ``UnifVarOp``, ``FWHTOp``, ``DFTOp``,
 ``ToeplitzOp``, ``DCTOp``) and a ``GampState``, so that a JAX state can
 warm-start the port.  The JAX objects are read by class name and field, so
 nothing here imports JAX; the ``*_to_numpy`` helpers give the same form
@@ -125,11 +127,55 @@ def sweep_result_from_json(doc: Union[str, Mapping]) -> SweepResult:
 # -- the GAMP path -------------------------------------------------------------
 
 ESTIMATOR_FIELDS = {
-    "AwgnPrior": ("mean0", "var0"),
     "CAwgnPrior": ("mean0", "var0"),
+    "AwgnPrior": ("mean0", "var0"),
     "SparsePrior": ("base", "p1"),
+    "SoftThreshPrior": ("lam",),
+    "CGMPrior": ("weights", "means", "variances"),
     "CAwgnLikelihood": ("y", "wvar", "scale"),
+    "ProbitLikelihood": ("y", "wvar"),
+    "PoissonLikelihood": ("y", "scale"),
+    "QuantizedLikelihood": ("lo", "hi"),
+    "OutlierLikelihood": ("y", "wvar", "wvar_out", "lam"),
+    "AwbgnLikelihood": ("y", "wvar", "lam"),
+    "TruthReporterPrior": ("base", "truth"),
+    "LaplacePrior": ("lam",),
+    "UnifPrior": ("lo", "hi"),
+    "NNGMPrior": ("weights", "means", "variances", "p1"),
+    "SNIPEPrior": ("omega",),
+    "EllpPrior": ("lam", "p"),
+    "DiscretePrior": ("atoms", "weights"),
+    "GroupSparsePrior": ("base", "p1"),
+    "LogitLikelihood": ("y", "scale"),
+    "RobustProbitLikelihood": ("probit", "p_flip"),
+    "RobustLogitLikelihood": ("y", "p_flip", "scale"),
+    "TDistLikelihood": ("y", "sigma"),
+    "MultiLogitLikelihood": ("y", "D", "scale", "n_particles", "seed"),
+    "LaplaceLikelihood": ("y", "lam"),
+    "MagnitudeLikelihood": ("y", "wvar"),
+    "DiracPrior": ("x0",),
+    "NullPrior": (),
+    "ElasticNetPrior": ("lam1", "lam2"),
+    "NNSoftThreshPrior": ("lam",),
+    "MixPrior": ("base_a", "base_b", "w"),
+    "ConcatPrior": ("priors", "sizes"),
+    "DiracLikelihood": ("y",),
+    "MaskedLikelihood": ("base", "mask"),
+    "GaussMixLikelihood": ("y", "weights", "variances"),
+    "CMultAwgnLikelihood": ("y", "c", "wvar"),
+    "HingeLikelihood": ("y", "scale"),
+    "ConcatLikelihood": ("likes", "sizes"),
+    "BGZeroMeanPrior": ("var0", "p1"),
+    "EllpDMMPrior": ("alpha", "p"),
+    "SoftThreshDMMPrior": ("alpha", "debias"),
+    "FxnhandlePrior": ("key", "denoise", "change_factor", "n_avg", "div_min", "div_max"),
+    "MultiSNIPEPrior": ("thetas", "omegas", "xvar_big"),
+    "L1Likelihood": ("scale", "auto_scale", "scale_min", "scale_max", "nit_scale"),
+    "NLLikelihood": ("y", "wvar", "out_fn", "n_z"),
 }
+_NESTED = ("base", "base_a", "base_b", "probit")  # one estimator
+_NESTED_TUPLES = ("priors", "likes")  # a tuple of estimators
+_CALLABLES = ("denoise", "out_fn")  # supplied by the caller as torch callables
 OP_FIELDS = {
     "MatrixOp": (base, ("A",)),
     "AdjointOp": (base, ("base",)),
@@ -139,6 +185,7 @@ OP_FIELDS = {
     "DiagOp": (masked, ("d",)),
     "IdentityOp": (structured, ("n",)),
     "SubsetOp": (structured, ("base", "idx")),
+    "DemeanRCOp": (structured, ("base", "gam", "col", "b12", "b21", "b13", "b31")),
     "UnifVarOp": (structured, ("base", "in_avg", "out_avg")),
     "FWHTOp": (fourier, ("n", "ordering")),
     "DFTOp": (fourier, ("n",)),
@@ -162,20 +209,67 @@ def _value_to_numpy(v):
     return v if isinstance(v, _STATIC) else (to_numpy(v) if isinstance(v, torch.Tensor) else np.asarray(v))
 
 
-def estimator_to_torch(est, device=None):
-    """A JAX estimator (or its ``estimator_to_numpy`` dict) as the port's."""
+def _generator(key, device) -> torch.Generator:
+    """``FxnhandlePrior.key`` as a ``torch.Generator`` on ``device``: a
+    generator stays; a state from :func:`estimator_to_numpy` (uint8) is
+    restored; a JAX key (its uint32 words) seeds a new one.  The probes
+    differ from JAX's; what they estimate does not."""
+    if isinstance(key, torch.Generator):
+        return key
+    words = np.asarray(key)
+    g = torch.Generator(device=device or "cpu")
+    if words.dtype == np.uint8:
+        g.set_state(torch.from_numpy(words.copy()))
+    else:
+        g.manual_seed(int.from_bytes(words.tobytes(), "little") % (1 << 63))
+    return g
+
+
+def estimator_to_torch(est, device=None, **callables):
+    """A JAX estimator (or its ``estimator_to_numpy`` dict) as the port's.
+    Estimators nest (``base``, ``probit``, ``base_a``/``base_b``, the
+    ``priors``/``likes`` tuples); static fields (``sizes``, ``D``,
+    ``n_particles``, ``seed``, ``n_avg``, …) stay Python values; the
+    callables ``denoise`` and ``out_fn`` are taken from ``callables`` (a
+    torch callable each, which nested estimators share; without one the
+    field's own value is kept)."""
     name = _kind(est)
-    kw = {f: estimator_to_torch(_field(est, f), device) if f == "base" else _value_to_torch(_field(est, f), device)
-          for f in ESTIMATOR_FIELDS[name]}
+    kw = {}
+    for f in ESTIMATOR_FIELDS[name]:
+        v = _field(est, f)
+        if f in _NESTED:
+            kw[f] = estimator_to_torch(v, device, **callables)
+        elif f in _NESTED_TUPLES:
+            kw[f] = tuple(estimator_to_torch(e, device, **callables) for e in v)
+        elif f in _CALLABLES:
+            kw[f] = callables.get(f, v)
+        elif f == "key":
+            kw[f] = _generator(v, device)
+        elif f == "sizes":
+            kw[f] = tuple(int(k) for k in v)
+        else:
+            kw[f] = _value_to_torch(v, device)
     return getattr(estim, name)(**kw)
 
 
 def estimator_to_numpy(est) -> Dict[str, object]:
+    """The port's estimator as a dict with a ``"type"`` key: numpy arrays,
+    Python values for static fields, nested dicts for nested estimators, the
+    callables themselves, and a generator's state as a uint8 array."""
     name = _kind(est)
     out = {"type": name}
     for f in ESTIMATOR_FIELDS[name]:
         v = getattr(est, f)
-        out[f] = estimator_to_numpy(v) if f == "base" else _value_to_numpy(v)
+        if f in _NESTED:
+            out[f] = estimator_to_numpy(v)
+        elif f in _NESTED_TUPLES:
+            out[f] = tuple(estimator_to_numpy(e) for e in v)
+        elif f in _CALLABLES or f == "sizes":
+            out[f] = v
+        elif f == "key":
+            out[f] = v.get_state().numpy()
+        else:
+            out[f] = _value_to_numpy(v)
     return out
 
 

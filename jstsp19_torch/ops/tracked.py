@@ -27,14 +27,18 @@ from jstsp19_torch.ops.jacobi import _round_robin_schedule, _schedule_gather_tab
 # track_precision → how the card computes P = Uᴴ·W and U·(f∘P):
 #   'fp32'    one complex64 product in full float32, TF32 off;
 #   '3xtf32'  three TF32 products over a hi/lo split of each operand (the
-#             counterpart of the TPU's 3-pass bf16 'high');
+#             counterpart of the TPU's 3-pass bf16 'high'), which no setting
+#             maps to any more;
 #   'tf32'    one TF32 product ('tensorfloat32' is JAX's name for it).
 # The TF32 forms run as real GEMMs of the [Re −Im; Im Re] block form, so
 # that TF32 applies whatever cuBLAS does with a complex GEMM.  'default' is
 # float32: one TF32 pass failed the eigh-oracle rule of
 # tools/torch_precision_shapes.py on an H100 (mc_admm at the canonical
 # point, max |ΔNMSE| to eigh 2.7e-3 against a 1e-3 limit; PERF.md §6).
-PRODUCTS = {"highest": "fp32", "high": "3xtf32", "default": "fp32", "tensorfloat32": "tf32"}
+# 'high' is float32 too: the truncating split drops lo·lo and biased the
+# mean NMSE by about 1e-6 (paired |z| up to 16 against 'highest'), and its
+# 31 kernels took 192 µs a product pair against float32's 29 µs in 3.
+PRODUCTS = {"highest": "fp32", "high": "fp32", "default": "fp32", "tensorfloat32": "tf32"}
 
 
 def split_tf32(x: torch.Tensor):

@@ -107,8 +107,9 @@ def proposed_admm(
          ``ops/jacobi.py::jacobi_svt_fn``) or 'tracked' (the warm-started
          rotation chain of ``ops/tracked.py``).
       track_precision: the precision of the tracked chain's two products on
-         the card ('highest' full float32, 'high' 3xTF32, 'default' as
-         ``ops/tracked.py::PRODUCTS`` decides; float32 on the CPU); every
+         the card ('highest' and 'high' full float32, 'tensorfloat32' one
+         TF32 pass, 'default' as ``ops/tracked.py::PRODUCTS`` decides;
+         float32 on the CPU); every
          other product runs in full float32.
       use_kernels: the correlation Aᴴ·K·Bᴴ and the soft threshold go
          through their kernels' wrappers (``kernels/dictionary.py``,

@@ -5,15 +5,17 @@ with the options of ``main/GampOpt.m``).
 
 Capabilities, as in the JAX package: per-element variances (the
 ``uniform_variance`` option wraps the operator in
-:class:`~jstsp19_torch.ops.structured.UnifVarOp`); the adaptive step with its
+:class:`~jstsp19_torch.ops.structured.UnifVarOp`); mean removal
+(``remove_mean``: the exact augmented operator of
+:func:`~jstsp19_torch.ops.structured.demean_rc` with the NullPrior and
+DiracLikelihood blocks of ``LinTransDemeanRC.m:222-240``); the adaptive step with its
 acceptance window, in the expected-log-likelihood or the Bethe form; max-sum
 mode; pvar/rvar damping, variance normalization, the stepMax backoff after
 repeated failures, Barzilai–Borwein steps; per-iteration noise-variance
 tuning; tol/stepTol freezing and a custom ``stop_fn``; histories; the
 automatic xvar0; and the exact warm start through ``state_in`` (the NaN
 anchors of ``gampEst.m:418-426,584-605`` are kept literally, which is what
-makes it exact).  Mean removal waits for ``DemeanRCOp`` and the
-concatenated estimators (ROADMAP Queue 1, item 7).
+makes it exact).
 
 Batched: x is (B, n) and y (B, m), and every scalar of the carry (``it``,
 ``stopped``, ``step``, ``step_max``, ``val``, ``val_in``, ``fail_count``,
@@ -30,7 +32,8 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from jstsp19_torch.ops.structured import UnifVarOp
+from jstsp19_torch.ops.structured import UnifVarOp, demean_rc
+from jstsp19_torch.solvers.estim import ConcatLikelihood, ConcatPrior, DiracLikelihood, NullPrior
 from jstsp19_torch.solvers.gamp import _full, _state_dtype
 
 _EPS = float(torch.finfo(torch.float32).eps)
@@ -130,8 +133,9 @@ class GampState(NamedTuple):
 
 
 class GampEstFin(NamedTuple):
-    """The user-facing results (``estFin`` of ``gampEst.m:701-729``); val,
-    step and nit are (B,)."""
+    """The user-facing results (``estFin`` of ``gampEst.m:701-729``), in
+    the original coordinates when mean removal is on; val, step and nit are
+    (B,)."""
 
     xhat: torch.Tensor
     xvar: torch.Tensor
@@ -149,21 +153,67 @@ class GampEstFin(NamedTuple):
     nit: torch.Tensor
 
 
-def augment_problem(prior, likelihood, op, opts: GampOptions):
-    """The uniformVariance augmentation of ``gampEst.m:283-289``.  The
-    removeMean one (``:262-282``) is not ported yet."""
+def _observation(like):
+    """The likelihood's observed data, which carries the batch, the device
+    and the dtype: ``y``, or a quantizer's ``lo``, found through the
+    wrappers (``base``, ``probit``, a concatenation's first block); None
+    for a likelihood with no data (``L1Likelihood``)."""
+    for name in ("y", "lo"):
+        if isinstance(getattr(like, name, None), torch.Tensor):
+            return getattr(like, name)
+    for name in ("base", "probit"):
+        if getattr(like, name, None) is not None:
+            return _observation(getattr(like, name))
+    likes = getattr(like, "likes", None)
+    return _observation(likes[0]) if likes else None
+
+
+def _batch_device(likelihood, x_init):
+    """(batch, device) of a solve: the observation's leading axes, or
+    x_init's where the likelihood holds no data."""
+    ref = _observation(likelihood)
+    if ref is None:
+        if not isinstance(x_init, torch.Tensor):
+            raise ValueError("gamp_est takes the batch from the likelihood's observation; this likelihood has "
+                             "none, so pass x_init as a (batch, n) tensor")
+        ref = x_init
+    return tuple(ref.shape[:-1]), ref.device
+
+
+def augment_problem(prior, likelihood, op, opts: GampOptions, x_init=None):
+    """The removeMean and uniformVariance augmentations of
+    ``gampEst.m:262-289``: mean removal builds the (m+2)×(n+2) demeaned
+    operator, one per realization of the solve's batch, and pads the
+    estimators with a NullPrior (inputs) and a zero-observation
+    DiracLikelihood (outputs)."""
     if opts.remove_mean:
-        raise NotImplementedError(
-            "remove_mean needs DemeanRCOp, ConcatPrior, NullPrior, DiracLikelihood and "
-            "ConcatLikelihood, which are not ported yet (ROADMAP Queue 1, item 7)")
-    if opts.uniform_variance:
+        (n,), (m,) = op.in_shape, op.out_shape
+        batch, dev = _batch_device(likelihood, x_init)
+        op = demean_rc(op, batch, dev)
+        prior = ConcatPrior(priors=(prior, NullPrior()), sizes=(n, 2))
+        likelihood = ConcatLikelihood(
+            likes=(likelihood, DiracLikelihood(y=torch.zeros(batch + (2,), device=dev))), sizes=(m, 2))
+        if opts.uniform_variance:
+            op = UnifVarOp(op, in_avg=n, out_avg=m)
+    elif opts.uniform_variance:
         op = UnifVarOp(op)
     return prior, likelihood, op
 
 
-def _init_state(prior, likelihood, op, opts, x_init, xvar_init, cplx) -> GampState:
-    y = likelihood.y
-    batch, dev = tuple(y.shape[:-1]), y.device
+def _tuned(like):
+    """The likelihood whose noise variance ``tune_wvar`` tunes: mean
+    removal's first block (its constraint rows have nothing to tune)."""
+    return like.likes[0] if isinstance(like, ConcatLikelihood) else like
+
+
+def _retuned(like, base):
+    """``like`` with its tuned likelihood replaced by ``base``."""
+    if isinstance(like, ConcatLikelihood):
+        return dataclasses.replace(like, likes=(base,) + like.likes[1:])
+    return base
+
+
+def _init_state(prior, likelihood, op, opts, x_init, xvar_init, cplx, batch, dev) -> GampState:
     (n,), (m,) = op.in_shape, op.out_shape
     x0, v0 = prior.init_moments()
     xdtype = torch.complex64 if cplx else torch.float32
@@ -213,7 +263,8 @@ def _gamp_iteration(prior, op, st: GampState, opts: GampOptions, column_norms):
     adapt, max_sum = opts.adapt_step, opts.max_sum
 
     def val_out_fn(like, axhat, pvar, phat):
-        if not adapt:
+        if not adapt or not hasattr(like, "logscale" if opts.adapt_step_bethe else "loglike"):
+            # a likelihood without a cost leaves the valIn-only criterion
             return torch.zeros_like(st.val)
         if opts.adapt_step_bethe:
             return _sum(like.logscale(axhat, pvar, phat))
@@ -256,7 +307,10 @@ def _gamp_iteration(prior, op, st: GampState, opts: GampOptions, column_norms):
     # is evaluated again under the tuned likelihood, so the window compares
     # values under one noise level
     if opts.tune_wvar:
-        like = dataclasses.replace(like, wvar=sel(like.tune_wvar_ml(phat, pvar_robust), like.wvar))
+        base = _tuned(like)
+        m0 = base.y.shape[-1]
+        wvar = sel(base.tune_wvar_ml(phat[..., :m0], pvar_robust[..., :m0]), base.wvar)
+        like = _retuned(like, dataclasses.replace(base, wvar=wvar))
         val = val_out_fn(like, axhat, pvar, phat) + st.val_in
 
     a2xvar_opt = sel(a2xvar, st.a2xvar_opt)
@@ -371,8 +425,10 @@ def _freeze(st: GampState, new: GampState) -> GampState:
     fields = {f: torch.where(st.stopped, getattr(st, f), getattr(new, f))
               for f in GampState._fields if f != "likelihood"}
     like = new.likelihood
-    if isinstance(like.wvar, torch.Tensor) and like.wvar is not st.likelihood.wvar:
-        like = dataclasses.replace(like, wvar=torch.where(st.stopped, st.likelihood.wvar, like.wvar))
+    base, old = _tuned(like), _tuned(st.likelihood)
+    wvar = getattr(base, "wvar", None)
+    if isinstance(wvar, torch.Tensor) and wvar is not old.wvar:
+        like = _retuned(like, dataclasses.replace(base, wvar=torch.where(st.stopped, old.wvar, wvar)))
     return GampState(**fields, likelihood=like)
 
 
@@ -429,35 +485,53 @@ def gamp_est(prior, likelihood, op, opts: Optional[GampOptions] = None, state_in
     """Run the full GAMP loop on a batch of problems; returns
     ``(estfin, state, hist)``.
 
-    ``likelihood.y`` is (B, m); the prior's parameters, ``x_init`` and
+    The likelihood's observation (``y``) is (B, m), and sets the batch and
+    the device (``x_init`` does for a likelihood with none); the prior's
+    parameters, ``x_init`` and
     ``xvar_init`` broadcast against (B, n).  ``state_in`` (a previous
     call's ``state``) warm-starts exactly: ``nit=a`` then ``nit=b`` from
     its state equals one ``nit=a+b`` run.  ``hist`` is empty unless
     ``save_hist``; then it holds one (nit, B, …) tensor per key (val, step,
     passed, resid, stopped and the exported iterates), decimated by
-    ``hist_intvl``.
+    ``hist_intvl``.  With ``remove_mean``, ``estfin`` is in the original
+    coordinates (``gampEst.m:663-684``) while ``state`` and ``hist`` stay in
+    the augmented ones, so that the state can be fed back.
     """
     opts = opts or GampOptions()
-    cplx = _state_dtype(prior.init_moments()[0], likelihood.y) == torch.complex64 or (
+    cplx = _state_dtype(prior.init_moments()[0], _observation(likelihood)) == torch.complex64 or (
         isinstance(x_init, torch.Tensor) and x_init.is_complex())
-    prior_a, like_a, op_a = augment_problem(prior, likelihood, op, opts)
+    batch, dev = _batch_device(likelihood, x_init)
+    xdtype = torch.complex64 if cplx else torch.float32
     if opts.xvar0auto and state_in is None and x_init is not None and xvar_init is None:
-        batch = tuple(likelihood.y.shape[:-1])
-        x0 = _full(x_init, batch + tuple(op.in_shape), torch.complex64 if cplx else torch.float32,
-                   likelihood.y.device)
+        x0 = _full(x_init, batch + tuple(op.in_shape), xdtype, dev)
         xvar_init = _xvar0_auto(prior, likelihood, op, x0, opts)
-    state = state_in if state_in is not None else _init_state(
-        prior_a, like_a, op_a, opts, x_init, xvar_init, cplx)
+    prior_a, like_a, op_a = augment_problem(prior, likelihood, op, opts, x_init)
+    if state_in is not None:
+        state = state_in
+    elif opts.remove_mean:
+        # the two augmented entries start at the exact expansion of the
+        # (user's or the prior's) initial state (gampEst.m:271-272), not at
+        # the NullPrior's placeholder moments
+        state = _init_state(prior_a, like_a, op_a, opts, None, None, cplx, batch, dev)
+        dm = op_a.base if opts.uniform_variance else op_a
+        n = op.in_shape[0]
+        x_base = state.xhat[..., :n] if x_init is None else _full(x_init, batch + (n,), xdtype, dev)
+        v_base = state.xvar[..., :n] if xvar_init is None else _full(xvar_init, batch + (n,), torch.float32, dev)
+        x_exp = dm.expand_xhat(x_base).to(xdtype)
+        state = state._replace(xhat=x_exp, xhat_opt=x_exp, xvar=dm.expand_xvar(v_base))
+    else:
+        state = _init_state(prior_a, like_a, op_a, opts, x_init, xvar_init, cplx, batch, dev)
     if opts.bb_step:
-        ones = torch.ones(tuple(likelihood.y.shape[:-1]) + tuple(op_a.out_shape), device=likelihood.y.device)
-        column_norms = torch.sqrt(op_a.sq_rmv(ones))
+        column_norms = torch.sqrt(op_a.sq_rmv(torch.ones(batch + tuple(op_a.out_shape), device=dev)))
     else:
         column_norms = None
     state, hist = _gamp_loop(prior_a, op_a, state, opts, column_norms)
+
+    def contract(v):
+        return v[..., :-2] if opts.remove_mean else v
+
     estfin = GampEstFin(
-        xhat=state.xhat_final, xvar=state.xvar_final, rhat=state.rhat_final, rvar=state.rvar_final,
-        phat=state.phat_final, pvar=state.pvar_final, zhat=state.zhat_final, zvar=state.zvar_final,
-        shat=state.shat_final, svar=state.svar_final, axhat=state.axhat_final,
+        *(contract(getattr(state, f + "_final")) for f in GampEstFin._fields[:11]),
         val=state.val.squeeze(-1), step=state.step.squeeze(-1), nit=state.it.squeeze(-1),
     )
     if opts.hist_intvl > 1:

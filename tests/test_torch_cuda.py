@@ -432,6 +432,56 @@ def test_gamp_est_runs_the_fwht_kernel(cuda):
     assert np.all(hcs.nmse_db(fin_on.xhat.cpu().numpy(), prob["x"]) < -40)
 
 
+def test_demean_rc_around_the_fwht_kernel_matches_the_plain_transform(cuda):
+    """DemeanRCOp around SubsetOp(FWHTOp(4096)) with one row set per
+    realization (B=4): its fields and four maps through the kernel equal
+    those through the plain transform (bit-equal transforms; 1e-6 of the
+    largest value for sums of other order), with 6 launches for the four
+    maps and 2 for demean_rc; mean-removal gamp_est launches 6 an iteration
+    + 2 and gives the plain route's estimate."""
+    from jstsp19_torch.ops.fourier import FWHTOp
+    from jstsp19_torch.ops.structured import SubsetOp, demean_rc
+
+    prob = hcs.hadamard_cs_problem(seed=2, batch=4, n=4096)
+    idx = torch.from_numpy(prob["idx"]).to(cuda)
+    before = fwht_kernel.launches
+    on = demean_rc(SubsetOp(FWHTOp(4096), idx), (4,), cuda)
+    off = demean_rc(SubsetOp(FWHTOp(4096, use_kernel=False), idx), (4,), cuda)
+    assert fwht_kernel.launches - before == 2
+    g = torch.Generator(device=cuda).manual_seed(3)
+    xd = torch.randn(4, 4098, generator=g, device=cuda)
+    sd = torch.randn(4, 1026, generator=g, device=cuda)
+    for f in ("gam", "col", "b12", "b21", "b13", "b31"):
+        torch.testing.assert_close(getattr(on, f), getattr(off, f), rtol=1e-6, atol=1e-7)
+    before = fwht_kernel.launches
+    outs = [(op.mv(xd), op.rmv(sd), op.sq_mv(xd.abs()), op.sq_rmv(sd.abs())) for op in (on, off)]
+    torch.cuda.synchronize()
+    assert fwht_kernel.launches - before == 6
+    for a, b in zip(*outs):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    before = fwht_kernel.launches
+    fin_on, _, _ = gamp_est(*hcs.hadamard_cs_torch(prob, cuda), GampOptions(nit=30, remove_mean=True))
+    torch.cuda.synchronize()
+    assert fwht_kernel.launches - before == 6 * int(fin_on.nit.max()) + 2
+    fin_off, _, _ = gamp_est(*hcs.hadamard_cs_torch(prob, cuda, use_kernel=False),
+                             GampOptions(nit=30, remove_mean=True))
+    torch.testing.assert_close(fin_on.xhat, fin_off.xhat, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["ProbitLikelihood", "NNGMPrior", "TDistLikelihood", "MultiLogitLikelihood",
+                                  "MagnitudeLikelihood", "FxnhandlePrior", "ConcatLikelihood", "SoftThreshDMMPrior"])
+def test_estimators_on_the_card_match_the_cpu(cuda, name):
+    """A handful of the estimators (tails, quadrature, particles, Bessel
+    ratios, probes, blocks, per-realization reductions) on the card against
+    the CPU on the same inputs (harness/estim_check.py, B=4, n=4096): 1e-5
+    of the largest value for closed forms, 1e-4 for the others."""
+    from jstsp19_torch.harness.estim_check import compare_devices, estimator_cases
+
+    case = next(c for c in estimator_cases(4, 4096, seed=5) if c.name == name)
+    c = compare_devices(case, cuda)
+    assert c.ok, c
+
+
 def test_specialized_recipes_on_the_card(cuda):
     """The approximate front end (n_mc=16) and capacity (n_mc=1000, three
     geometries) on the card: the approximate-mode ADMM launches both per-op
@@ -540,6 +590,7 @@ def test_tracked_chain_precisions_on_the_card(cuda):
     assert errs["fp32"] < 1e-5 and errs["3xtf32"] < 1e-5
     assert 1e-5 < errs["tf32"] < 1e-2
     assert tracked.PRODUCTS["default"] == "fp32"  # the eigh-oracle decision (PERF.md §6)
+    assert tracked.PRODUCTS["high"] == "fp32"  # the truncating 3xTF32 split biased the mean (PERF.md §6)
 
 
 def test_dryrun_one_rank_on_nccl(cuda):

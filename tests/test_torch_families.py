@@ -44,6 +44,17 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 REF = json.loads((ROOT / "results" / "torch_families_jax.json").read_text())
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These batches are small: one intra-op thread each, so that the suite's
+    parallel workers do not oversubscribe the cores (OpenMP threads spinning
+    on small linear-algebra calls made these tests 100 times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def T(x):
     return torch.from_numpy(np.array(x))
 

@@ -30,6 +30,19 @@ from jstsp19_torch.harness import pipeline, runner  # noqa: E402
 from jstsp19_torch.harness.experiments import EXPERIMENTS  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These batches are small: one intra-op thread each, so that the suite's
+    parallel workers do not oversubscribe the cores (OpenMP threads spinning
+    on small linear-algebra calls made these tests 100 times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 NV_5DB = 10 ** (-0.5)
 
 

@@ -24,6 +24,17 @@ IMAX = 25
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These batches are small: one intra-op thread each, so that the suite's
+    parallel workers do not oversubscribe the cores (OpenMP threads spinning
+    on small linear-algebra calls made these tests 100 times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_slice_matches_jax_fused_point_errors():
     """JAX proposed_problem (vmapped) → interop → the port's
     fused_tracked_admm + clamped_nmse equals JAX fused_point_errors in

@@ -2,10 +2,10 @@
 
 On the problems of ``jstsp19_torch/harness/hadamard_cs.py`` (B=32,
 n=65536, m=16384), ``torch.profiler`` over one ``gamp_est`` solve
-(``GampOptions()``) and one lean ``gamp`` solve (100 iterations, step 0.9),
-each with the FWHT kernel: wall time, device self time, the device's busy
-share, the device event count per iteration and the 12 largest device
-items.
+(``GampOptions()``), one with mean removal (``GampOptions(remove_mean=True)``)
+and one lean ``gamp`` solve (100 iterations, step 0.9), each with the FWHT
+kernel: wall time, device self time, the device's busy share, the device
+event count per iteration and the 12 largest device items.
 
 Usage: ``python tools/torch_gamp_profile.py`` (needs a CUDA device).
 """
@@ -24,7 +24,7 @@ from jstsp19_torch.bench import card_line  # noqa: E402
 from jstsp19_torch.harness import hadamard_cs as hcs  # noqa: E402
 from jstsp19_torch.kernels import wht  # noqa: E402
 from jstsp19_torch.solvers.gamp import gamp  # noqa: E402
-from jstsp19_torch.solvers.gamp_full import gamp_est  # noqa: E402
+from jstsp19_torch.solvers.gamp_full import GampOptions, gamp_est  # noqa: E402
 
 
 def main() -> int:
@@ -36,6 +36,7 @@ def main() -> int:
     prior, like, op = hcs.hadamard_cs_torch(hcs.hadamard_cs_problem(), dev)
     solvers = {
         "gamp_est": lambda: int(gamp_est(prior, like, op)[0].nit.max()),
+        "gamp_est(remove_mean=True)": lambda: int(gamp_est(prior, like, op, GampOptions(remove_mean=True))[0].nit.max()),
         "gamp": lambda: gamp(prior, like, op, nit=hcs.GAMP_NIT, step=hcs.GAMP_STEP) and hcs.GAMP_NIT,
     }
     from torch.profiler import ProfilerActivity, profile

@@ -4,7 +4,8 @@ The counterpart of ``tools/tpu_precision_shapes.py:49-60``, with its eigh
 oracle: at four shapes (the canonical point at 0 dB; delays L=10, T=25; nt
 Nt=Gt=16, T=25, FFT combiner; nrf Mr=16, T=5, each at its recipe's noise
 variance) the same draws go through 'eigh' and through 'tracked' at
-'highest' (full float32), 'high' (3xTF32) and 'tensorfloat32' (one TF32
+'highest' (full float32), 'high' (as ``PRODUCTS`` maps it: float32 since
+the truncating 3xTF32 split biased the mean) and 'tensorfloat32' (one TF32
 pass, the candidate for 'default'), for proposed, proposed_angles, svt and
 tssr (``realization_errors``) and the mc_admm family (``mc_admm`` on the
 proposed observation, LS de-mixing).  For each shape, method and precision:
@@ -187,7 +188,7 @@ def main(argv=None) -> int:
     differs = max(rows[s][m][CANDIDATE]["max_abs_diff_vs_highest"] for s in SHAPES for m in FAMILIES)
     print(f"[precision] one TF32 pass differs from 'highest': max per-realization |dNMSE| {differs:.3e} "
           f"({'TF32 applied' if differs > 0 else 'no difference: TF32 did not change a result'})", flush=True)
-    print(f"[precision] 'high' (3xTF32) passes the same rule: {high_ok}"
+    print(f"[precision] 'high' ({PRODUCTS['high']}) passes the same rule: {high_ok}"
           + (f" (fails at {high_failing})" if high_failing else ""), flush=True)
     print(f"[precision] decision: 'default' {'keeps one TF32 pass' if keep else 'runs float32'}"
           + (f" (fails at {failing})" if failing else "")
