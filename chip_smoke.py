@@ -132,6 +132,25 @@ Phases (any failure ends the run with a non-zero exit code and no result):
     ``estim_map``, ``loglike`` and ``logscale`` it has, on the card against
     the CPU on the same inputs, max|Δ| ≤ 1e-5·max|ref| for the closed forms
     and 1e-4 for the tails, quadrature and particle forms.
+19. the eighth slice (``harness/amp_sparse.py``, ``harness/op_check.py``):
+    (a) ``amp_est`` with ``rvar_method`` 'mean' and 'median' (50 iterations)
+    on phase 11's problems through ``ScaledOp(SubsetOp(FWHTOp), 2)``:
+    exactly 2 FWHT launches an iteration, per-realization NMSE within 1% of
+    the kernel off, the batch mean within 4 SE of
+    ``results/torch_amp_sparse_jax.json``, both timed in turns; (a') S-AMP
+    on 16 condition-10 log-spectrum problems (200 iterations, damp 0.5):
+    every NMSE < 1e-3, the batch mean within 4 SE, its time and device
+    kernels an iteration; (b) ``dict_correlation`` and ``soft_threshold``
+    against their plain versions at the shapes of ``sparse_admm`` and
+    ``vamp_slm``, then ``sparse_admm`` at the canonical point's shapes
+    (B=256, Imax 100): 101 and 100 launches, per-realization NMSE within
+    1e-3 of the kernels off, the batch mean within 4 SE, timed in turns;
+    (c) ``vamp_slm`` on the canonical VAMP problem (B=256, 50 iterations):
+    one ``dict_correlation`` launch, the batch mean within 4 SE, realization
+    0's ``mse_track`` beside ``vamp_slm_se``; (d) the card against the CPU:
+    every new operator (max|Δ| ≤ 1e-5·max|ref|, adjoint identity to 1e-4),
+    the four state evolutions on the same draws (1e-4) and the random
+    constructors' structure.
 
 Then one JSON line with each kernel's launches, error, times and bound (the
 larger of its bytes over 3.35 TB/s and its float32 operations over
@@ -820,6 +839,212 @@ def _mean_removal(root, dev, card, prob_cs, routes) -> int:
     return launches
 
 
+def _nmse_gate(phase: str, what: str, e_db: np.ndarray, ref: dict) -> None:
+    """Print the batch mean NMSE (dB) beside the JAX reference's and stop the
+    run unless it lies within 4 combined standard errors."""
+    mean, sd, n = float(e_db.mean()), float(e_db.std(ddof=1)), e_db.size
+    se = math.sqrt(ref["sd_db"] ** 2 / ref["n"] + sd**2 / n)
+    inside = abs(mean - ref["mean_db"]) <= 4 * se
+    print(f"{phase} {what}: batch mean {mean:.4f} dB (sd {sd:.4f}, n {n}) vs JAX {ref['mean_db']:.4f} dB "
+          f"(sd {ref['sd_db']:.4f}, n {ref['n']}): z {(mean - ref['mean_db']) / se:+.2f}, within 4 SE: {inside}")
+    if not inside:
+        raise SystemExit(f"{phase} {what}: batch mean NMSE outside 4 SE of the JAX reference")
+
+
+def _timed(phase: str, what: str, fn, card: str, reps: int = 5) -> None:
+    """Best, median and spread of ``reps`` CUDA-event timings of ``fn()``."""
+    from jstsp19_torch.bench import cuda_event_times
+
+    t, _ = cuda_event_times(lambda _: fn(), reps)
+    best, median = min(t), sorted(t)[len(t) // 2]
+    print(f"{phase} {what}: best {best * 1e3:.3f} ms, median {median * 1e3:.3f} ms, spread "
+          f"{(max(t) - best) * 1e3:.3f} ms over {reps} reps (card: {card})")
+
+
+def _amp_sparse(root, dev, card, prob_cs) -> dict:
+    """Phase 19; returns {kernel: {path: launches}} and each per-op kernel's
+    largest |Δ| against its plain version at the slice's shapes."""
+    from jstsp19_torch.bench import device_ms
+    from jstsp19_torch.core import prng
+    from jstsp19_torch.harness import amp_sparse as aps
+    from jstsp19_torch.harness import op_check
+    from jstsp19_torch.kernels import dictionary
+    from jstsp19_torch.kernels.dictionary import dict_correlation, dict_correlation_plain
+    from jstsp19_torch.kernels.softthresh import fused_soft_threshold, fused_soft_threshold_plain
+    from jstsp19_torch.kernels.wht import fwht_kernel
+    from jstsp19_torch.ops.base import MatrixOp
+    from jstsp19_torch.ops.kron import KronDictOp
+    from jstsp19_torch.solvers.gamp import amp_est
+    from jstsp19_torch.solvers.sparse import sparse_admm
+    from jstsp19_torch.solvers.vamp_slm import vamp_slm, vamp_slm_se
+
+    ref = json.loads((root / "results" / "torch_amp_sparse_jax.json").read_text())
+    paths = {"fwht": {}, "dict_correlation": {}, "soft_threshold": {}}
+
+    # (a) amp_est on the partial-Hadamard problems, 'mean' and 'median'
+    routes = {flag: aps.hadamard_amp_torch(prob_cs, dev, use_kernel=flag) for flag in (True, False)}
+    for method in ("mean", "median"):
+        def solve(flag):
+            y, op, prior, _ = routes[flag]
+            return amp_est(y, op, prior, nit=aps.AMP_NIT, rvar_method=method, damp=aps.AMP_DAMP)
+
+        fwht_kernel.launches = 0
+        x_on = solve(True)
+        torch.cuda.synchronize()
+        launches = fwht_kernel.launches
+        paths["fwht"][f"amp_est {method} [19a]"] = launches
+        print(f"[19a] amp_est rvar_method={method!r} (B, n = {prob_cs['x'].shape}, nit {aps.AMP_NIT}, damp "
+              f"{aps.AMP_DAMP}): fwht_kernel launches = {launches} (need exactly 2 x {aps.AMP_NIT})")
+        if launches != 2 * aps.AMP_NIT:
+            raise SystemExit("[19a] amp_est did not launch the FWHT kernel twice an iteration")
+        e_on = aps.nmse_db(x_on.cpu().numpy(), prob_cs["x"])
+        e_off = aps.nmse_db(solve(False).cpu().numpy(), prob_cs["x"])
+        rel = float(np.max(np.abs(10 ** (e_on / 10) - 10 ** (e_off / 10)) / 10 ** (e_off / 10)))
+        ok = bool(np.all(np.isfinite(e_on)) and rel <= 0.01)
+        print(f"[19a] {method}: NMSE kernel on {e_on.mean():.4f} dB, off {e_off.mean():.4f} dB; max per-realization "
+              f"relative |dNMSE| = {rel:.3e}; finite and within 1%: {ok}")
+        if not ok:
+            raise SystemExit("[19a] NMSE not finite or kernel on and off disagree")
+        _nmse_gate("[19a]", f"amp_est {method}", e_on, ref[f"amp_est_{method}"])
+        for label, flag in (("kernel on", True), ("kernel off", False), ("kernel on", True), ("kernel off", False)):
+            _timed("[19a]", f"amp_est {method}, {label}", lambda: solve(flag), card)
+
+    # (a') S-AMP on the condition-10 log-spectrum ensemble
+    sp = aps.spectrum_problems()
+    y, A, ev = (torch.from_numpy(sp[k]).to(dev) for k in ("y", "A", "evals"))
+
+    def s_amp(nit):
+        return amp_est(y, MatrixOp(A), aps.spectrum_prior(), nit=nit, wvar=aps.SPEC_WVAR, evals_aah=ev,
+                       damp=aps.SAMP_DAMP)
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    xs = s_amp(aps.SAMP_NIT)
+    end.record()
+    torch.cuda.synchronize()
+    seconds = start.elapsed_time(end) / 1e3
+    lin = ((xs.cpu().numpy().astype(np.float64) - sp["x"]) ** 2).sum(-1) / (sp["x"] ** 2).sum(-1)
+    counts = [device_ms(lambda: s_amp(k), calls=1, match="")[1] for k in (2, 3)]
+    print(f"[19a'] S-AMP (B={len(sp['y'])}, n {aps.SPEC_N}, m {aps.SPEC_M}, condition {aps.SPEC_COND:g}, nit "
+          f"{aps.SAMP_NIT}, damp {aps.SAMP_DAMP}): {seconds:.3f} s, {1e3 * seconds / aps.SAMP_NIT:.3f} ms an iteration; "
+          f"{counts[1] - counts[0]:.0f} device kernels an iteration (55 s_transform bisections of 60 steps) "
+          f"(card: {card})")
+    print(f"[19a'] S-AMP NMSE per realization: max {lin.max():.3e} (every one < 1e-3: {bool((lin < 1e-3).all())})")
+    if not (lin < 1e-3).all():
+        raise SystemExit("[19a'] an S-AMP realization did not reach NMSE < 1e-3")
+    _nmse_gate("[19a']", "S-AMP", 10 * np.log10(lin), ref["s_amp"])
+
+    # (b) sparse_admm at the canonical point's shapes: the kernels against
+    # their plain versions there, then the solve
+    bp = aps.to_device(aps.beamspace_problem(), dev)
+    g = torch.Generator(device=dev).manual_seed(19)
+    errs = {"dict_correlation": 0.0, "soft_threshold": 0.0}
+    vp = aps.to_device(aps.vamp_slm_problem(), dev)
+    for what, A_, K_, B_ in (
+            ("sparse_admm, A^H OH Dt", bp["Dr"], bp["OH"], bp["Dt"].mH.contiguous()),
+            ("sparse_admm's solve, Ur^H K Ut (a unitary A)", bp["Dr"] / math.sqrt(32),
+             torch.randn(aps.ADMM_BATCH, 32, 4, generator=g, device=dev, dtype=torch.complex64),
+             bp["Dt"].mH.contiguous() / 2),
+            ("vamp_slm, A^H y B^H", vp["A"], vp["y"], vp["B"])):
+        out_k, ref_k = dict_correlation(A_, K_, B_), dict_correlation_plain(A_, K_, B_)
+        torch.cuda.synchronize()
+        err, scale = float((out_k - ref_k).abs().max()), float(ref_k.abs().max())
+        errs["dict_correlation"] = max(errs["dict_correlation"], err)
+        N_, M_ = K_.shape[-2:]
+        plan = dictionary.plan(N_, M_, A_.shape[-1], B_.shape[-2])
+        d_ms, launched = device_ms(lambda: dict_correlation(A_, K_, B_), match="dict_correlation")
+        print(f"[19b] dict_correlation {what}: K {tuple(K_.shape)}, A {tuple(A_.shape)}, B {tuple(B_.shape)}: "
+              f"max|d|={err:.3e} <= 1e-5*max|ref|={1e-5 * scale:.3e}: {err <= 1e-5 * scale}; plan {plan.rpb} "
+              f"realization(s) a block, tk {plan.tk}, tiles of {plan.mt}, {plan.smem_bytes} B shared; device "
+              f"{d_ms * 1e3:.2f} us in {launched:.0f} kernel(s) a call (card: {card})")
+        if not err <= 1e-5 * scale:
+            raise SystemExit("[19b] dict_correlation disagrees with its plain version")
+    v = torch.randn(aps.ADMM_BATCH, 32, 4, generator=g, device=dev, dtype=torch.complex64) * 0.02
+    out_k, ref_k = fused_soft_threshold(v, aps.ADMM_TAU_S / aps.ADMM_RHO), \
+        fused_soft_threshold_plain(v, aps.ADMM_TAU_S / aps.ADMM_RHO)
+    torch.cuda.synchronize()
+    errs["soft_threshold"] = float((out_k - ref_k).abs().max())
+    print(f"[19b] soft_threshold v {tuple(v.shape)}, tau {aps.ADMM_TAU_S / aps.ADMM_RHO:g}: max|d|="
+          f"{errs['soft_threshold']:.3e} <= 1e-6: {errs['soft_threshold'] <= 1e-6}")
+    if not errs["soft_threshold"] <= 1e-6:
+        raise SystemExit("[19b] soft_threshold disagrees with its plain version")
+
+    def admm(flag):
+        return sparse_admm(bp["H"], bp["OH"], bp["Dr"], bp["Dt"], aps.ADMM_IMAX, aps.ADMM_RHO, aps.ADMM_TAU_S,
+                           use_kernels=flag)
+
+    dict_correlation.launches = fused_soft_threshold.launches = 0
+    _, e_on = admm(True)
+    torch.cuda.synchronize()
+    n_dict, n_soft = dict_correlation.launches, fused_soft_threshold.launches
+    paths["dict_correlation"]["sparse_admm [19b]"] = n_dict
+    paths["soft_threshold"]["sparse_admm [19b]"] = n_soft
+    print(f"[19b] sparse_admm (B={aps.ADMM_BATCH}, 32x4, Imax {aps.ADMM_IMAX}): launches dict_correlation {n_dict} "
+          f"(need {aps.ADMM_IMAX + 1}), soft_threshold {n_soft} (need {aps.ADMM_IMAX})")
+    if (n_dict, n_soft) != (aps.ADMM_IMAX + 1, aps.ADMM_IMAX):
+        raise SystemExit("[19b] sparse_admm did not go through both kernels as often as it should")
+    _, e_off = admm(False)
+    lin_on, lin_off = e_on[:, -1].cpu().numpy(), e_off[:, -1].cpu().numpy()
+    rel = float(np.max(np.abs(lin_on - lin_off) / lin_off))
+    ok = bool(np.all(np.isfinite(lin_on)) and rel <= 1e-3)
+    print(f"[19b] sparse_admm final NMSE kernels on {10 * np.log10(lin_on).mean():.4f} dB, off "
+          f"{10 * np.log10(lin_off).mean():.4f} dB; max per-realization relative |dNMSE| = {rel:.3e}; within 1e-3: {ok}")
+    if not ok:
+        raise SystemExit("[19b] NMSE not finite or kernels on and off disagree")
+    _nmse_gate("[19b]", "sparse_admm", 10 * np.log10(lin_on), ref["sparse_admm"])
+    for label, flag in (("kernels on", True), ("kernels off", False), ("kernels on", True), ("kernels off", False)):
+        _timed("[19b]", f"sparse_admm, {label}", lambda: admm(flag), card)
+
+    # (c) vamp_slm on the canonical VAMP problem
+    op = KronDictOp(vp["A"], vp["B"])
+    prior = aps.vamp_slm_prior(vp["beta"])
+    gamw = vp["gamw"][:, None, None]
+    dict_correlation.launches = 0
+    res = vamp_slm(prior, vp["y"], op, gamw, nit=aps.VAMP_NIT, damp=aps.VAMP_DAMP)
+    torch.cuda.synchronize()
+    paths["dict_correlation"]["vamp_slm [19c]"] = n = dict_correlation.launches
+    print(f"[19c] vamp_slm (B={aps.VAMP_BATCH}, nit {aps.VAMP_NIT}, damp {aps.VAMP_DAMP}): dict_correlation "
+          f"launches = {n} (need 1)")
+    if n != 1:
+        raise SystemExit("[19c] vamp_slm did not take A^H y through the kernel once")
+    _nmse_gate("[19c]", "vamp_slm", aps.nmse_db(res.x.cpu().numpy(), vp["x"].cpu().numpy()), ref["vamp_slm"])
+    _timed("[19c]", "vamp_slm", lambda: vamp_slm(prior, vp["y"], op, gamw, nit=aps.VAMP_NIT, damp=aps.VAMP_DAMP), card)
+    beta = float(vp["beta"])
+
+    def sampler(gen, n_):
+        act = torch.rand(n_, generator=gen, device=gen.device) < beta
+        return torch.where(act, prng.complex_normal(gen, (n_,), var=1 / beta), 0)
+
+    d0 = op.gram_in_eig()[2][0].reshape(-1)
+    se = vamp_slm_se(sampler, prior, d0, float(vp["gamw"][0]), nit=aps.VAMP_NIT).cpu().numpy()
+    track = res.mse_track[0].cpu().numpy()
+    print("[19c] realization 0, E[xvar1] by iteration (mse_track) beside vamp_slm_se's prediction: "
+          + ", ".join(f"{i + 1}: {track[i]:.4g} / {se[i]:.4g}" for i in (0, 1, 4, 9, 24, aps.VAMP_NIT - 1)))
+
+    # (d) the card against the CPU: the operators, the state evolutions, the constructors
+    fwht_kernel.launches = 0
+    misses = []
+    for name, factory in op_check.operator_cases():
+        c = op_check.compare_operator(name, factory, dev)
+        print(f"[19d] {c.name}: max|d| over max|ref| {c.max_rel:.3e} <= {c.tol:g}; adjoint identity "
+              f"{c.adjoint_rel:.3e} <= {op_check.ADJ_TOL:g}: {c.ok}")
+        if not c.ok:
+            misses.append(c.name)
+    torch.cuda.synchronize()
+    paths["fwht"]["ConcatOp [19d]"] = fwht_kernel.launches
+    for c in op_check.compare_state_evolutions(dev):
+        print(f"[19d] {c.name} on the same draws: max|d| over max|ref| {c.max_rel:.3e} <= {c.tol:g}: {c.ok}")
+        if not c.ok:
+            misses.append(c.name)
+    for what, (value, ok) in op_check.random_op_structure(dev).items():
+        print(f"[19d] {what}: {value}: {ok}")
+        if not ok:
+            misses.append(what)
+    if misses:
+        raise SystemExit(f"[19d] the card and the CPU disagree: {misses}")
+    return {"paths": paths, "errs": errs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the GPU", file=sys.stderr)
@@ -1306,13 +1531,22 @@ def main() -> int:
     # ---- 18. the seventh slice: mean removal and the estimator library --------------
     demean_launches = _mean_removal(root, dev, card, prob_cs, routes)
 
+    # ---- 19. the eighth slice: amp_est, S-AMP, sparse_admm, vamp_slm, the operators ---
+    tail = _amp_sparse(root, dev, card, prob_cs)
+    for k in kernels[1:3]:
+        k["max_abs_err"] = max(k["max_abs_err"], tail["errs"][k["name"]])
+        for path, n in tail["paths"][k["name"]].items():
+            k["launches_by_path"][path] = n
+            k["launches"] += n
+
     kernels.append({
         "name": "fwht",
         "route": "cuda",
         "source": "jstsp19_torch/kernels/csrc/fwht.cu",
         "replaces": "jstsp19_tpu/kernels/wht.py:46",
-        "launches": fwht_launches + demean_launches,
-        "launches_by_path": {"partial Hadamard GAMP [11]": fwht_launches, "mean removal [18]": demean_launches},
+        "launches": fwht_launches + demean_launches + sum(tail["paths"]["fwht"].values()),
+        "launches_by_path": {"partial Hadamard GAMP [11]": fwht_launches, "mean removal [18]": demean_launches,
+                             **tail["paths"]["fwht"]},
         "max_abs_err": fwht_err,
         "ms": fwht_ms,
         "plain_ms": fwht_plain_ms,

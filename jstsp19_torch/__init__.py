@@ -9,9 +9,12 @@ mirrors the JAX package, which stays the reference:
   channel/   wideband frequency-selective mmWave channel generator
   frontend/  beamformers, 4-QAM, training frames, HBF measurement
   ops/       Jacobi schedules, warm-started tracked SVT, the implicit
-             Kronecker dictionary operator
-  solvers/   soft threshold, SVT, the proposed ADMM, and the LS, MMV-OMP
-             and VAMP baselines
+             Kronecker dictionary operator, the dense, Fourier and
+             structured operators of the GAMP path
+  solvers/   soft threshold and the l1 ADMM, SVT, the proposed ADMM, the LS,
+             OMP and VAMP baselines, the estimators, GAMP, AMP (S-AMP),
+             VAMP-SLM and the state evolutions
+  utils/     the discrete-distribution helpers
   kernels/   hand-written CUDA kernels (sm_90a) with their plain versions
   harness/   the batched pipeline, the sweep runner, the experiment
              registry and artifacts (``python -m jstsp19_torch``)

@@ -184,6 +184,24 @@ def _oracle_order(Zbar: torch.Tensor) -> torch.Tensor:
     return torch.argsort(-Zbar.abs().flatten(-2), dim=-1, stable=True)
 
 
+def _conventional(pc: PointConfig, ch, Psi, N, W):
+    """The HBF observation Y_c and the dictionaries A_c (one per realization)
+    and B_c under the training budget T_hbf (``plot_errorVSsnr.m:73-78``)."""
+    Th = pc.T_hbf
+    Y_c, W_c = hbf(ch.H, N[..., :Th], Psi[..., :Th], pc.Nr, W)
+    A_c, B_c = _dictionaries(ch, W_c, Psi[..., :Th])
+    return Y_c, _per_realization(A_c, ch.H.shape[0]), B_c
+
+
+def conventional_problem(gens, pc: PointConfig, noise_var, batch: int) -> Dict[str, torch.Tensor]:
+    """The conventional branch's inputs for ``batch`` realizations: Y_c, A_c,
+    B_c and the true beamspace channel Zbar (the keys of
+    ``interop.CONVENTIONAL_KEYS``)."""
+    ch, Psi, N, W, _ = _draws(gens, pc, noise_var, batch, observe=False)
+    Y_c, A_c, B_c = _conventional(pc, ch, Psi, N, W)
+    return dict(Y_c=Y_c, A_c=A_c, B_c=B_c, Zbar=ch.Zbar)
+
+
 def realization_errors(
     gens, pc: PointConfig, noise_var, batch: int, H_ext=None, *, rows=None, clamp=True, with_zbar=False
 ) -> Dict[str, torch.Tensor]:
@@ -212,10 +230,7 @@ def realization_errors(
     if {"ls", "vamp", "omp_mmv", "omp_td"} & set(pc.methods):
         # conventional branch under the fair training budget T_hbf
         # (plot_errorVSsnr.m:73-78)
-        Th = pc.T_hbf
-        Y_c, W_c = hbf(ch.H, N[..., :Th], Psi[..., :Th], pc.Nr, W)
-        A_c, B_c = _dictionaries(ch, W_c, Psi[..., :Th])
-        A_c = _per_realization(A_c, batch)
+        Y_c, A_c, B_c = _conventional(pc, ch, Psi, N, W)
         if "ls" in pc.methods:
             out["ls"] = metric(ls_estimate(Y_c, A_c, B_c), ch.Zbar)
         if "vamp" in pc.methods:

@@ -11,10 +11,12 @@ For the GAMP path: all 45 estimators of ``solvers/estim.py`` (nested ones
 included; a callable field such as ``denoise`` or ``out_fn`` is supplied by
 the caller as a torch callable, and ``FxnhandlePrior``'s JAX key becomes a
 ``torch.Generator``), the operators (``MatrixOp``, ``AdjointOp``,
-``ScaledOp``, ``ComposedOp``, ``MaskOp``, ``DiagOp``, ``IdentityOp``,
-``SubsetOp``, ``DemeanRCOp``, ``UnifVarOp``, ``FWHTOp``, ``DFTOp``,
-``ToeplitzOp``, ``DCTOp``) and a ``GampState``, so that a JAX state can
-warm-start the port.  The JAX objects are read by class name and field, so
+``ScaledOp``, ``ComposedOp``, ``ConcatOp``, ``BlockDiagOp``, ``MaskOp``,
+``DiagOp``, ``IdentityOp``, ``SubsetOp``, ``CenterOp``, ``TVOp``, ``HaarOp``,
+``MedImageOp``, ``DemeanRCOp``, ``UnifVarOp``, ``FWHTOp``, ``DFTOp``,
+``ToeplitzOp``, ``DCTOp``), a ``GampState``, so that a JAX state can
+warm-start the port, and an ``EstimInAvg`` with its draws, so that the state
+evolution can average over JAX's samples.  The JAX objects are read by class name and field, so
 nothing here imports JAX; the ``*_to_numpy`` helpers give the same form
 back as a dict with a ``"type"`` key and numpy fields.
 """
@@ -32,6 +34,7 @@ from jstsp19_torch.ops import base, fourier, masked, structured
 from jstsp19_torch.solvers import estim
 from jstsp19_torch.solvers.admm import AdmmState
 from jstsp19_torch.solvers.gamp_full import GampState
+from jstsp19_torch.solvers.gamp_se import EstimInAvg
 
 PROBLEM_KEYS = ("subY", "Omega", "A", "B", "tau_Y", "tau_S", "rho", "Zbar", "rank")
 CONVENTIONAL_KEYS = ("Y_c", "A_c", "B_c", "Zbar")
@@ -181,10 +184,16 @@ OP_FIELDS = {
     "AdjointOp": (base, ("base",)),
     "ScaledOp": (base, ("base", "alpha")),
     "ComposedOp": (base, ("outer", "inner")),
+    "ConcatOp": (base, ("ops",)),
+    "BlockDiagOp": (base, ("A",)),
     "MaskOp": (masked, ("Omega",)),
     "DiagOp": (masked, ("d",)),
     "IdentityOp": (structured, ("n",)),
     "SubsetOp": (structured, ("base", "idx")),
+    "CenterOp": (structured, ("n",)),
+    "TVOp": (structured, ("n",)),
+    "HaarOp": (structured, ("n", "levels")),
+    "MedImageOp": (structured, ("ny", "nx", "levels", "mask_idx")),
     "DemeanRCOp": (structured, ("base", "gam", "col", "b12", "b21", "b13", "b31")),
     "UnifVarOp": (structured, ("base", "in_avg", "out_avg")),
     "FWHTOp": (fourier, ("n", "ordering")),
@@ -193,6 +202,7 @@ OP_FIELDS = {
     "DCTOp": (fourier, ("n",)),
 }
 _SUB_OPS = ("base", "outer", "inner")
+_INDEX_SETS = ("idx", "mask_idx")  # JAX's static tuples, int64 tensors here
 _STATIC = (bool, int, float, complex, str)
 
 
@@ -275,7 +285,8 @@ def estimator_to_numpy(est) -> Dict[str, object]:
 
 def op_to_torch(op, device=None):
     """A JAX operator (or its ``op_to_numpy`` dict) as the port's; a
-    ``SubsetOp``'s static index tuple becomes an int64 tensor."""
+    ``SubsetOp``'s or ``MedImageOp``'s static index tuple becomes an int64
+    tensor, a ``ConcatOp``'s operators a tuple of the port's."""
     name = _kind(op)
     module, fields = OP_FIELDS[name]
     kw = {}
@@ -283,7 +294,9 @@ def op_to_torch(op, device=None):
         v = _field(op, f)
         if f in _SUB_OPS:
             kw[f] = op_to_torch(v, device)
-        elif f == "idx":
+        elif f == "ops":
+            kw[f] = tuple(op_to_torch(o, device) for o in v)
+        elif f in _INDEX_SETS:
             kw[f] = torch.as_tensor(np.asarray(v, dtype=np.int64), device=device)
         else:
             kw[f] = _value_to_torch(v, device)
@@ -291,14 +304,32 @@ def op_to_torch(op, device=None):
 
 
 def op_to_numpy(op) -> Dict[str, object]:
-    """The port's operator as a dict of numpy fields (``idx`` an int64
-    array; the JAX ``SubsetOp`` takes ``tuple(idx)``)."""
+    """The port's operator as a dict of numpy fields (``idx`` and
+    ``mask_idx`` int64 arrays, which the JAX operators take as tuples; a
+    ``ConcatOp``'s ``ops`` a tuple of dicts)."""
     name = _kind(op)
     out = {"type": name}
     for f in OP_FIELDS[name][1]:
         v = getattr(op, f)
-        out[f] = op_to_numpy(v) if f in _SUB_OPS else _value_to_numpy(v)
+        if f in _SUB_OPS:
+            out[f] = op_to_numpy(v)
+        elif f == "ops":
+            out[f] = tuple(op_to_numpy(o) for o in v)
+        else:
+            out[f] = _value_to_numpy(v)
     return out
+
+
+def estim_in_avg_to_torch(avg, device=None) -> EstimInAvg:
+    """A JAX ``EstimInAvg`` (or its :func:`estim_in_avg_to_numpy` dict) as the
+    port's, with JAX's draws x and w and its prior as the port's."""
+    return EstimInAvg(prior=estimator_to_torch(_field(avg, "prior"), device),
+                      x=to_torch(_field(avg, "x"), device), w=to_torch(_field(avg, "w"), device))
+
+
+def estim_in_avg_to_numpy(avg: EstimInAvg) -> Dict[str, object]:
+    return {"type": "EstimInAvg", "prior": estimator_to_numpy(avg.prior), "x": to_numpy(avg.x),
+            "w": to_numpy(avg.w)}
 
 
 def _stack_states(states: Sequence) -> Dict[str, object]:

@@ -163,7 +163,12 @@ def dict_correlation(A: torch.Tensor, K: torch.Tensor, B: torch.Tensor) -> torch
     dev = K.device
     out_shape, args, _ = _call(K.shape, A.shape, B.shape)
     if not (K.dtype is _C64 and A.dtype is _C64 and B.dtype is _C64 and A.device == dev and B.device == dev
-            and K.is_contiguous() and A.is_contiguous() and B.is_contiguous()):
+            and K.is_contiguous() and A.is_contiguous() and B.is_contiguous()
+            and not (K.is_conj() or A.is_conj() or B.is_conj())):
+        # a lazily conjugated operand keeps its values unconjugated in memory
+        # (x.mH of a column-major x, as eigh returns, is contiguous with the
+        # conjugate bit set): the kernel reads memory, so resolve it first
+        A, K, B = A.resolve_conj(), K.resolve_conj(), B.resolve_conj()
         for name, x in (("K", K), ("A", A), ("B", B)):
             check_tensor(name, x, x.shape, _C64, dev)  # raises with what is wrong
     out = torch.empty(out_shape, dtype=_C64, device=dev)

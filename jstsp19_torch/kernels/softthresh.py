@@ -92,7 +92,8 @@ def fused_soft_threshold(v: torch.Tensor, tau) -> torch.Tensor:
     shape, dev = v.shape, v.device
     if len(shape) < 2:
         raise ValueError(f"v must be (..., n, m), got shape {tuple(shape)}")
-    if not (v.dtype is torch.complex64 and v.is_contiguous()):
+    if not (v.dtype is torch.complex64 and v.is_contiguous() and not v.is_conj()):
+        v = v.resolve_conj()  # the kernel reads memory, which a lazy conjugate leaves unconjugated
         check_tensor("v", v, shape, torch.complex64, dev)  # raises with what is wrong
     total, ptr, value = v.numel(), None, 0.0
     group = total  # entries under one τ

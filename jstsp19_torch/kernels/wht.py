@@ -202,7 +202,7 @@ def _launch(lib, x: torch.Tensor, ordering: str, inverse: bool, plan: FwhtPlan) 
     the plans of builds with another cluster size); returns the transform."""
     n = x.shape[-1]
     log2n = _log2(n)
-    xc = x.contiguous()
+    xc = x.resolve_conj().contiguous()  # the kernel reads memory, which a lazy conjugate leaves unconjugated
     if xc.data_ptr() % 16:  # the kernel moves rows in 16-byte vectors
         xc = xc.clone()
     out = torch.empty_like(xc)

@@ -1,6 +1,7 @@
 """Linear-operator protocol: explicit adjoint pairs, and the dense, adjoint,
-scaled and composed operators (counterpart of ``jstsp19_tpu/ops/base.py``:
-``LinOp``, ``MatrixOp``, ``AdjointOp``, ``ScaledOp`` and ``ComposedOp``).
+scaled, composed, stacked and block-diagonal operators (counterpart of
+``jstsp19_tpu/ops/base.py``: ``LinOp``, ``MatrixOp``, ``AdjointOp``,
+``ScaledOp``, ``ComposedOp``, ``ConcatOp`` and ``BlockDiagOp``).
 
 Every operator implements a forward map ``mv`` and its exact adjoint
 ``rmv`` (the ⟨Ax, y⟩ = ⟨x, Aᴴy⟩ contract of ``test/testlintrans.m:28-42``),
@@ -178,3 +179,60 @@ class ComposedOp(LinOp):
 
     def sq_rmv(self, y):
         return self.inner.sq_rmv(self.outer.sq_rmv(y))
+
+
+@dataclasses.dataclass(frozen=True)
+class ConcatOp(LinOp):
+    """Vertical stack [A1; A2; …] on a shared input (``LinTransConcat``):
+    ``mv`` returns a tuple of outputs, ``rmv`` takes one and sums the
+    adjoints."""
+
+    ops: Tuple[LinOp, ...]
+
+    @property
+    def in_shape(self):
+        return self.ops[0].in_shape
+
+    @property
+    def out_shape(self):
+        return tuple(op.out_shape for op in self.ops)
+
+    def mv(self, x):
+        return tuple(op.mv(x) for op in self.ops)
+
+    def rmv(self, ys):
+        return sum((op.rmv(y) for op, y in zip(self.ops[1:], ys[1:])), self.ops[0].rmv(ys[0]))
+
+    def sq_mv(self, x):
+        return tuple(op.sq_mv(x) for op in self.ops)
+
+    def sq_rmv(self, ys):
+        return sum((op.sq_rmv(y) for op, y in zip(self.ops[1:], ys[1:])), self.ops[0].sq_rmv(ys[0]))
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockDiagOp(LinOp):
+    """Block-diagonal operator over a block axis (``BlkdiagLinTrans``): A is
+    (nblocks, m, n), one matrix a block, applied to x (..., nblocks, n)."""
+
+    A: torch.Tensor
+
+    @property
+    def in_shape(self):
+        return (self.A.shape[-3], self.A.shape[-1])
+
+    @property
+    def out_shape(self):
+        return (self.A.shape[-3], self.A.shape[-2])
+
+    def mv(self, x):
+        return _matvec(self.A, x)
+
+    def rmv(self, y):
+        return _matvec(self.A.mH, y)
+
+    def sq_mv(self, x):
+        return _matvec(self.A.abs() ** 2, x)
+
+    def sq_rmv(self, y):
+        return _matvec((self.A.abs() ** 2).mT, y)

@@ -1,22 +1,30 @@
-"""Structured operators of the GAMP path (counterpart of part of
-``jstsp19_tpu/ops/structured.py``: ``IdentityOp``, ``SubsetOp``,
-``DemeanRCOp`` with ``demean_rc``, and ``UnifVarOp``).
+"""Structured operators (counterpart of ``jstsp19_tpu/ops/structured.py``):
+``IdentityOp``, ``SubsetOp``, ``CenterOp``, ``TVOp``, ``HaarOp``,
+``MedImageOp``, ``DemeanRCOp`` with ``demean_rc``, ``UnifVarOp``,
+``FxnhandleOp`` with ``fxnhandle_op``, the random constructors
+``random_unitary_op``, ``expander_graph_op`` and ``sparse_signed_op``,
+``rbf_kernel_op`` and ``genie_normal_matvec``.
 
 Each follows the :class:`~jstsp19_torch.ops.base.LinOp` adjoint-pair protocol
-with exact ``sq_mv``/``sq_rmv`` variance maps.  Where the JAX package keeps a
-subset's rows as a static tuple (one trace per row set), here they are a
-tensor: (m,) shared by the batch, or (B, m) with one row set per
-realization; mean removal's row and column means are likewise one set per
-realization.  The other operators of that module wait for the GAMP long
-tail (ROADMAP Queue 1, item 7).
+with exact ``sq_mv``/``sq_rmv`` variance maps (``MedImageOp`` and
+``FxnhandleOp`` take the reference's Frobenius approximation, as in JAX).
+Where the JAX package keeps index sets as static tuples (one trace per set),
+here they are int64 tensors: a subset's rows (m,) shared by the batch, or
+(B, m) with one row set per realization, and ``MedImageOp``'s k-space mask;
+mean removal's row and column means are one set per realization.  The random
+constructors draw from a ``torch.Generator`` on its device where JAX takes a
+key: the matrices differ from JAX's, their structure does not.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Callable, Tuple
 
 import torch
 
-from jstsp19_torch.ops.base import LinOp
+from jstsp19_torch.core.config import resolve_device
+from jstsp19_torch.ops.base import LinOp, MatrixOp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +96,224 @@ class SubsetOp(LinOp):
 
     def sq_rmv(self, y):
         return self.base.sq_rmv(self._scatter(y))
+
+
+@dataclasses.dataclass(frozen=True)
+class CenterOp(LinOp):
+    """Mean removal ``P = I − 1·1ᵀ/n`` on length-``n`` vectors, the primitive
+    behind ``LinTransDemean.m`` (``ComposedOp(CenterOp(m), base)`` demeans a
+    base operator's output).  Self-adjoint; ``|P|²_ij = δ_ij·(1 − 2/n) +
+    1/n²``."""
+
+    n: int
+
+    @property
+    def in_shape(self):
+        return (self.n,)
+
+    @property
+    def out_shape(self):
+        return (self.n,)
+
+    def mv(self, x):
+        return x - x.mean(-1, keepdim=True)
+
+    def rmv(self, y):
+        return self.mv(y)
+
+    def _sq(self, x):
+        return (1.0 - 2.0 / self.n) * x + x.sum(-1, keepdim=True) / self.n**2
+
+    def sq_mv(self, x):
+        return self._sq(x)
+
+    def sq_rmv(self, y):
+        return self._sq(y)
+
+
+def _pad_both(y):
+    """(y with a zero before it, y with a zero after it), along the last axis."""
+    zero = torch.zeros_like(y[..., :1])
+    return torch.cat([zero, y], -1), torch.cat([y, zero], -1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TVOp(LinOp):
+    """1-D first differences ``(Dx)_i = x_{i+1} − x_i`` ∈ R^{n−1}
+    (``LinTransTV.m``)."""
+
+    n: int
+
+    @property
+    def in_shape(self):
+        return (self.n,)
+
+    @property
+    def out_shape(self):
+        return (self.n - 1,)
+
+    def mv(self, x):
+        return x[..., 1:] - x[..., :-1]
+
+    def rmv(self, y):
+        # (Dᵀy)_0 = −y_0, (Dᵀy)_i = y_{i−1} − y_i, (Dᵀy)_{n−1} = y_{n−2}
+        lo, hi = _pad_both(y)
+        return lo - hi
+
+    def sq_mv(self, x):
+        return x[..., 1:] + x[..., :-1]
+
+    def sq_rmv(self, y):
+        lo, hi = _pad_both(y)
+        return lo + hi
+
+
+def _interleave(e, o):
+    """[e0, o0, e1, o1, …] along the last axis."""
+    return torch.stack([e, o], -1).flatten(-2)
+
+
+@dataclasses.dataclass(frozen=True)
+class HaarOp(LinOp):
+    """Orthonormal multi-level Haar transform on length-``n`` vectors, n a
+    power of two (the ``LinTransWavelet.m`` capability), by lifting: per
+    level ``a = (e + o)/√2``, ``d = (e − o)/√2``.  The adjoint is the
+    inverse; the variance maps run the same pyramid on the squared
+    coefficients (each butterfly ``(e + o)/2``).  Output layout
+    ``[approx(level L) | details(level L) | … | details(1)]``."""
+
+    n: int
+    levels: int
+
+    def __post_init__(self):
+        if self.n & (self.n - 1):
+            raise ValueError("HaarOp requires power-of-two length")
+        if not 1 <= self.levels <= self.n.bit_length() - 1:
+            raise ValueError("invalid level count")
+
+    @property
+    def in_shape(self):
+        return (self.n,)
+
+    @property
+    def out_shape(self):
+        return (self.n,)
+
+    def _analysis(self, x, c):
+        details, a = [], x
+        for _ in range(self.levels):
+            e, o = a[..., 0::2], a[..., 1::2]
+            details.append((e - o) * c)
+            a = (e + o) * c
+        return torch.cat([a] + details[::-1], -1)
+
+    def _synthesis(self, y, c, square):
+        size = self.n >> self.levels
+        a, off = y[..., :size], size
+        for _ in range(self.levels):
+            d = y[..., off:off + size]
+            off += size
+            a = _interleave((a + d) * c, (a + d) * c if square else (a - d) * c)
+            size *= 2
+        return a
+
+    def mv(self, x):
+        return self._analysis(x, 1.0 / math.sqrt(2.0))
+
+    def rmv(self, y):
+        return self._synthesis(y, 1.0 / math.sqrt(2.0), False)
+
+    def sq_mv(self, x):
+        details, a = [], x
+        for _ in range(self.levels):
+            a = (a[..., 0::2] + a[..., 1::2]) * 0.5
+            details.append(a)
+        return torch.cat([a] + details[::-1], -1)
+
+    def sq_rmv(self, y):
+        return self._synthesis(y, 0.5, True)
+
+
+@dataclasses.dataclass(frozen=True)
+class MedImageOp(LinOp):
+    """Undersampled k-space acquisition (``main/MedImageLinTrans.m``):
+    ``z = M·F·Wᴴ·x``, x the 2-D Haar coefficients of an (ny, nx) image in
+    the quadrant (Mallat) layout, Wᴴ their orthonormal synthesis, F the
+    orthonormal 2-D DFT (``torch.fft.fft2(norm="ortho")``) and M a k-space
+    mask: ``mask_idx``, the int64 flat (row-major) indices of the acquired
+    samples.  The adjoint accumulates into the full plane with
+    ``index_add_`` (a repeated index adds).  The variance maps take the
+    reference's uniform Frobenius approximation: every row of M·F·Wᴴ has
+    unit norm, so |A|²·v ≈ sum(v)/N both ways.  Inputs and outputs are
+    flat vectors, batched over leading axes."""
+
+    ny: int
+    nx: int
+    levels: int
+    mask_idx: torch.Tensor
+
+    def __post_init__(self):
+        if (self.ny & (self.ny - 1)) or (self.nx & (self.nx - 1)):
+            raise ValueError("MedImageOp requires power-of-two image dims")
+        max_lv = min(self.ny, self.nx).bit_length() - 1
+        if not 1 <= self.levels <= max_lv:
+            raise ValueError(f"levels must be in [1, {max_lv}] for a {self.ny}x{self.nx} image, got {self.levels}")
+
+    @property
+    def in_shape(self):
+        return (self.ny * self.nx,)
+
+    @property
+    def out_shape(self):
+        return (self.mask_idx.shape[-1],)
+
+    def _synthesis(self, c):
+        """Wavelet coefficients (…, ny, nx) → image."""
+        r = 1.0 / math.sqrt(2.0)
+        a = c.clone()
+        for lev in reversed(range(self.levels)):
+            h, w = self.ny >> lev, self.nx >> lev
+            hh, hw = h // 2, w // 2
+            ll, lh = a[..., :hh, :hw], a[..., :hh, hw:w]
+            hl, hd = a[..., hh:h, :hw], a[..., hh:h, hw:w]
+            # the inverse separable Haar: columns, then rows
+            top = _interleave((ll + lh) * r, (ll - lh) * r)
+            bot = _interleave((hl + hd) * r, (hl - hd) * r)
+            a[..., :h, :w] = torch.stack([(top + bot) * r, (top - bot) * r], -2).flatten(-3, -2)
+        return a
+
+    def _analysis(self, img):
+        """Image → wavelet coefficients (the synthesis's adjoint)."""
+        r = 1.0 / math.sqrt(2.0)
+        a = img.clone()
+        for lev in range(self.levels):
+            h, w = self.ny >> lev, self.nx >> lev
+            sub = a[..., :h, :w]
+            e_r, o_r = sub[..., 0::2, :], sub[..., 1::2, :]
+            rows = torch.cat([(e_r + o_r) * r, (e_r - o_r) * r], -2)
+            e_c, o_c = rows[..., :, 0::2], rows[..., :, 1::2]
+            a[..., :h, :w] = torch.cat([(e_c + o_c) * r, (e_c - o_c) * r], -1)
+        return a
+
+    def mv(self, x):
+        img = self._synthesis(x.reshape(x.shape[:-1] + (self.ny, self.nx)).to(torch.complex64))
+        return torch.fft.fft2(img, norm="ortho").flatten(-2)[..., self.mask_idx]
+
+    def rmv(self, z):
+        full = torch.zeros(z.shape[:-1] + (self.ny * self.nx,), dtype=torch.complex64, device=z.device)
+        full.index_add_(-1, self.mask_idx, z.to(torch.complex64))  # the adjoint accumulates
+        img = torch.fft.ifft2(full.reshape(z.shape[:-1] + (self.ny, self.nx)), norm="ortho")
+        return self._analysis(img).flatten(-2)
+
+    def _sq(self, v, size):
+        s = v.sum(-1, keepdim=True) / (self.ny * self.nx)
+        return s.expand(v.shape[:-1] + (size,))
+
+    def sq_mv(self, v):
+        return self._sq(v, self.mask_idx.shape[-1])
+
+    def sq_rmv(self, v):
+        return self._sq(v, self.ny * self.nx)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,3 +480,119 @@ class UnifVarOp(LinOp):
 
     def sq_rmv(self, y):
         return self._avg(self.base.sq_rmv(self._avg(y, self.out_avg)), self.in_avg)
+
+
+@dataclasses.dataclass(frozen=True)
+class FxnhandleOp(LinOp):
+    """Operator from forward and adjoint callables on tensors
+    (``main/FxnhandleLinTrans.m``) with the ``LinTrans.m:30-39`` Frobenius
+    rank-1 variance approximation ``sq_mv(x) ≈ (‖A‖²_F/(m·n))·1·Σx``, summed
+    over the operator's own trailing axes only (leading axes are a batch).
+    Build it with :func:`fxnhandle_op`."""
+
+    mv_fn: Callable
+    rmv_fn: Callable
+    shape_in: tuple
+    shape_out: tuple
+    fro2: torch.Tensor
+
+    @property
+    def in_shape(self):
+        return self.shape_in
+
+    @property
+    def out_shape(self):
+        return self.shape_out
+
+    def mv(self, x):
+        return self.mv_fn(x)
+
+    def rmv(self, y):
+        return self.rmv_fn(y)
+
+    def _sq(self, v, from_shape, to_shape):
+        s = v.sum(tuple(range(-len(from_shape), 0))) * (self.fro2 / (math.prod(self.shape_out) *
+                                                                     math.prod(self.shape_in)))
+        return s[(...,) + (None,) * len(to_shape)].expand(s.shape + tuple(to_shape))
+
+    def sq_mv(self, x):
+        return self._sq(x, self.shape_in, self.shape_out)
+
+    def sq_rmv(self, y):
+        return self._sq(y, self.shape_out, self.shape_in)
+
+
+def fxnhandle_op(mv_fn, rmv_fn, in_shape, out_shape, fro2=None, key=None, n_probe: int = 8,
+                 device=None) -> FxnhandleOp:
+    """Wrap torch callables as a LinOp.  Without ``fro2``, ‖A‖²_F = E‖A·g‖²
+    (g ~ CN(0, I)) is estimated from ``n_probe`` probes drawn from ``key``,
+    a ``torch.Generator`` (a new one seeded 0 on ``device``, the card unless
+    named, when none is given), as ``FxnhandleLinTrans.m`` does."""
+    if fro2 is None:
+        if key is None:
+            key = torch.Generator(device=resolve_device(device)).manual_seed(0)
+        g = torch.randn((n_probe,) + tuple(in_shape), generator=key, device=key.device, dtype=torch.complex64)
+        fro2 = torch.stack([(mv_fn(v).abs() ** 2).sum() for v in g]).mean()
+    return FxnhandleOp(mv_fn=mv_fn, rmv_fn=rmv_fn, shape_in=tuple(in_shape), shape_out=tuple(out_shape),
+                       fro2=torch.as_tensor(fro2))
+
+
+def random_unitary_op(gen: torch.Generator, n: int) -> MatrixOp:
+    """A Haar-random unitary (``RandomUniTrans.m``): QR of a complex Gaussian
+    with the phase fix that makes R's diagonal positive, complex64 on the
+    generator's device."""
+    G = torch.randn(n, n, generator=gen, device=gen.device, dtype=torch.complex64)  # CN(0, 1)
+    Q, R = torch.linalg.qr(G)
+    d = torch.diagonal(R)
+    return MatrixOp(Q * (d / d.abs()).conj())
+
+
+def _column_rows(gen: torch.Generator, m: int, n: int, d: int) -> torch.Tensor:
+    """(n, d) distinct rows for each of n columns, uniform: the first d of a
+    random permutation of m per column (argsort of uniforms)."""
+    return torch.rand(n, m, generator=gen, device=gen.device).argsort(-1)[:, :d]
+
+
+def _from_columns(rows: torch.Tensor, values, m: int) -> torch.Tensor:
+    """The (m, n) float32 matrix with ``values`` at ``rows[j]`` of column j."""
+    n, d = rows.shape
+    A = torch.zeros(n, m, device=rows.device)
+    A.scatter_(-1, rows, torch.as_tensor(values, dtype=torch.float32, device=rows.device).expand(n, d))
+    return A.mT.contiguous()
+
+
+def expander_graph_op(gen: torch.Generator, m: int, n: int, d: int) -> MatrixOp:
+    """Sparse binary measurement matrix with ``d`` ones a column at uniform
+    distinct rows (``ExpanderGraphLinTrans.m``), scaled by 1/√d to unit
+    column norms; dense float32 storage on the generator's device."""
+    return MatrixOp(_from_columns(_column_rows(gen, m, n, d), 1.0 / math.sqrt(d), m))
+
+
+def sparse_signed_op(gen: torch.Generator, nz: int, nx: int, d: int) -> MatrixOp:
+    """The sparse signed matrix of ``main/genSparseMat.m``: nz × nx with
+    exactly ``d`` nonzeros a column at distinct uniform rows, each
+    ``±√(nz/(d·nx))`` with a Rademacher sign; dense float32 storage."""
+    rows = _column_rows(gen, nz, nx, d)
+    signs = torch.randint(0, 2, (nx, d), generator=gen, device=gen.device).to(torch.float32) * 2.0 - 1.0
+    return MatrixOp(_from_columns(rows, signs * math.sqrt(nz / (d * nx)), nz))
+
+
+def rbf_kernel_op(X: torch.Tensor, gamma: float = 1.0) -> MatrixOp:
+    """The RBF Gram operator ``K_ij = exp(−gamma·‖x_i − x_j‖²)`` over the rows
+    of X (``KernelLinTrans.m``)."""
+    sq = (X.abs() ** 2).sum(-1)
+    d2 = sq[..., :, None] + sq[..., None, :] - 2.0 * (X @ X.mH).real
+    return MatrixOp(torch.exp(-gamma * torch.clamp(d2, min=0.0)))
+
+
+def genie_normal_matvec(A: LinOp, reg, support) -> Callable:
+    """The matvec of ``(A_S·A_Sᴴ + reg·I)`` for an operator and a support
+    mask S (``main/pcgHelper.m:1-18``): the adjoint image is zeroed off the
+    support before the forward map, for matrix-free conjugate gradients on
+    genie LMMSE systems."""
+
+    def mv(x):
+        r = A.rmv(x)
+        return A.mv(torch.where(support, r, torch.zeros_like(r))) + reg * x
+
+    return mv

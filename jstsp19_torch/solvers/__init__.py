@@ -1,5 +1,46 @@
-"""Solvers: the soft threshold, SVT and the SVT/ADMM matrix completions
-(``mc_svt``, ``mc_admm``), the proposed ADMM, the baselines LS, OMP (``omp``,
-``omp_gram``, ``omp_gram_kron``, the time-domain ``omp_td``, MMV-OMP) and
-CoSaMP and VAMP, the scalar estimators, and the GAMP core (``gamp_est``,
-``gamp``, ``amp``, ``fista``, ``sure_amp``)."""
+"""Solvers: the soft threshold and the l1 beamspace ADMM, SVT and the
+SVT/ADMM matrix completions (``mc_svt``, ``mc_admm``), the proposed ADMM, the
+baselines LS, OMP (``omp``, ``omp_gram``, the time-domain ``omp_td``,
+MMV-OMP) and CoSaMP, VAMP-GLM with its state evolution, VAMP-SLM, the 45
+scalar estimators, the GAMP core (``gamp_est``, ``gamp``, ``amp``,
+``amp_est`` with S-AMP, ``fista``, ``sure_amp``) and GAMP's state evolution.
+
+The names the JAX package's ``solvers`` exports and the port has are
+exported here under the same names, each imported on first use (the kernel
+wrappers import ``solvers.sparse``, so importing every solver here would
+make a cycle), except ``gamp``, ``gamp_se`` and ``vamp_slm``: here those
+name their modules, where the JAX package rebinds them to the functions.
+"""
+import importlib
+
+_EXPORTS = {
+    **dict.fromkeys(("svt", "mc_svt", "mc_admm"), "lowrank"),
+    **dict.fromkeys(("soft_threshold", "sparse_admm"), "sparse"),
+    **dict.fromkeys(("proposed_admm", "proposed_admm_angles", "admm_hyperparams"), "admm"),
+    **dict.fromkeys(("ls_estimate",), "lsq"),
+    **dict.fromkeys(("cosamp", "omp", "omp_gram", "omp_mmv", "omp_td"), "omp"),
+    **dict.fromkeys(("CAwgnPrior", "SparsePrior", "CAwgnLikelihood", "AwgnPrior", "SoftThreshPrior",
+        "CGMPrior", "LaplacePrior", "UnifPrior", "NNGMPrior", "SNIPEPrior", "EllpPrior", "DiscretePrior",
+        "GroupSparsePrior", "ProbitLikelihood", "LogitLikelihood", "RobustProbitLikelihood",
+        "RobustLogitLikelihood", "TDistLikelihood", "MultiLogitLikelihood", "PoissonLikelihood",
+        "QuantizedLikelihood", "OutlierLikelihood", "AwbgnLikelihood", "TruthReporterPrior",
+        "LaplaceLikelihood", "MagnitudeLikelihood", "DiracPrior", "NullPrior", "ElasticNetPrior",
+        "NNSoftThreshPrior", "MixPrior", "ConcatPrior", "DiracLikelihood", "MaskedLikelihood",
+        "GaussMixLikelihood", "CMultAwgnLikelihood", "HingeLikelihood", "ConcatLikelihood", "BGZeroMeanPrior",
+        "EllpDMMPrior", "SoftThreshDMMPrior", "FxnhandlePrior", "MultiSNIPEPrior", "L1Likelihood",
+        "NLLikelihood"), "estim"),
+    **dict.fromkeys(("cawgn_likelihood_mse", "mc_likelihood_mse", "vamp_glm", "vamp_glm_se", "vamp_mmwave"),
+        "vamp"),
+    **dict.fromkeys(("fista", "amp", "amp_est", "sure_amp"), "gamp"),
+    **dict.fromkeys(("GampOptions", "GampState", "GampEstFin", "gamp_est"), "gamp_full"),
+    "vamp_slm_se": "vamp_slm",
+    **dict.fromkeys(("EstimInAvg", "AwgnOutAvg", "MCOutAvg", "estim_in_avg", "bg_sampler", "s_transform"),
+                    "gamp_se"),
+}
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)

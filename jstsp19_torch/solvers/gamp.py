@@ -1,6 +1,6 @@
-"""Generalized AMP, FISTA, AMP and SURE-AMP, batched (counterpart of
-``jstsp19_tpu/solvers/gamp.py``: ``GampResult``, ``gamp``, ``fista``,
-``amp`` and ``sure_amp``).
+"""Generalized AMP, FISTA, AMP, SURE-AMP and the full ``ampEst.m`` loop,
+batched (counterpart of ``jstsp19_tpu/solvers/gamp.py``: ``GampResult``,
+``gamp``, ``fista``, ``amp``, ``sure_amp`` and ``amp_est``).
 
 The lean fixed-iteration GAMP recursion of ``gampEst.m`` (forward variance →
 output posterior → Onsager-corrected residual → backward variance → input
@@ -10,11 +10,13 @@ posterior) with constant or adaptive step damping; the estimator modules of
 pair the LinTrans role.  Where the JAX package solves one problem per call,
 here the observation carries a leading batch dimension, (B, m), and every
 per-problem scalar of the recursion (the step, the cost, the threshold,
-the Lipschitz constant) is one per realization, kept as a (B, 1) tensor.
-``lax.scan`` becomes a Python loop.
+the Lipschitz constant, AMP's variances) is one per realization, kept as a
+(B, 1) tensor.  ``lax.scan`` and ``fori_loop`` become Python loops with no
+host sync.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -207,4 +209,103 @@ def sure_amp(y, op, nit: int = 50, n_grid: int = 32) -> torch.Tensor:
         else:
             df = _mean(alive)
         z = y - op.mv(x) + z * df / delta
+    return x
+
+
+def _median(v: torch.Tensor) -> torch.Tensor:
+    """Median over the last axis, kept as (..., 1): the mean of the two
+    middle values of an even count, as ``jnp.median`` (``torch.median``
+    takes the lower one)."""
+    s, n = v.sort(-1).values, v.shape[-1]
+    mid = s[..., n // 2:n // 2 + 1]
+    return mid if n % 2 else 0.5 * (s[..., n // 2 - 1:n // 2] + mid)
+
+
+def amp_est(y, op, prior, nit: int = 50, rvar_method: str = "mean", wvar=None, evals_aah=None,
+            rvar_min: float = 1e-12, bisect_iters: int = 50, damp: float = 1.0) -> torch.Tensor:
+    """The full ``ampEst.m`` main loop (``ampEst.m:180-290``), both variance
+    branches, batched over y's leading dimensions (y (B, m)):
+
+    * **standard AMP**: Onsager gain ``(n/m)·xvar/rvar``; the denoiser-input
+      variance by ``rvar_method``, ``'mean'`` (the corrected residual's
+      power), ``'median'`` (the robust MAD estimate of ``ampEst.m:236-241``,
+      √(2/log4)·median|v̂| for a complex state) or ``'wvar'`` (the oracle
+      ``wvar + (n/m)·xvar``, needs ``wvar``);
+    * **S-AMP** (``evals_aah``, the spectrum of A·Aᴴ, (R,) shared or (B, R)):
+      Onsager gain ``1 − 1/S(−xvar/rvar)`` and rvar the fixed point of
+      ``rvar = wvar·S(−xvar/rvar)`` by bisection (``ampEst.m:221-268``), S
+      the :func:`~jstsp19_torch.solvers.gamp_se.s_transform` of the
+      spectrum.  Needs ``wvar``.
+
+    The first iteration always takes the residual's power
+    (``ampEst.m:229-231``).  ``wvar`` is a number or (B, 1); every scalar of
+    the recursion is one per realization, (B, 1).  Assumes unit-norm
+    columns; ``damp`` (1.0 as the reference) damps the corrected residual.
+    Returns the final estimate x (B, n).
+    """
+    from jstsp19_torch.solvers.gamp_se import s_transform_of
+
+    batch, dev = tuple(y.shape[:-len(op.out_shape)]), y.device
+    M, N = _size(op.out_shape), _size(op.in_shape)
+    delta = M / N
+    x0, xvar0 = prior.init_moments()
+    xdtype = _state_dtype(x0, y)
+    col = batch + (1,) * len(op.in_shape)
+    x = _full(x0, batch + tuple(op.in_shape), xdtype, dev)
+    in_dims = tuple(range(-len(op.in_shape), 0))
+    out_dims = tuple(range(-len(op.out_shape), 0))
+
+    def power(v):
+        return (v.abs() ** 2).mean(out_dims, keepdim=True)
+
+    if evals_aah is not None:
+        ev = torch.as_tensor(evals_aah, dtype=torch.float32, device=dev)
+        # S's open domain is (−R/N, 0), R = rank(A·Aᴴ), smaller than (−M/N, 0)
+        # for a rank-deficient spectrum: clamp to the actual edge
+        rn = (ev > 0).sum(-1, keepdim=ev.dim() > 1) / N
+        lo_edge = -torch.clamp(torch.clamp(rn, max=delta) - 1e-3, min=1e-6)
+        hi_edge = torch.full_like(lo_edge, -1e-9)
+        S = s_transform_of(ev, N)
+
+        def S_of(div):
+            return S(torch.clamp(div, lo_edge, hi_edge))
+
+        def rvar_bisect(xvar):
+            # rvar = wvar·S(−xvar/rvar), monotone in rvar: bisection; the
+            # bracket's top grows ×100 up to 4 times until its error is >= 0
+            lo = torch.clamp(xvar / delta, min=rvar_min)
+
+            def err(r):
+                return r - wvar * S_of(-xvar / r)
+
+            hi = lo * 100.0
+            for _ in range(4):
+                hi = torch.where(err(hi) < 0, hi * 100.0, hi)
+            for _ in range(bisect_iters):
+                mid = 0.5 * (lo + hi)
+                up = err(mid) > 0
+                lo, hi = torch.where(up, lo, mid), torch.where(up, mid, hi)
+            return 0.5 * (lo + hi)
+
+    vhat = torch.zeros(batch + tuple(op.out_shape), dtype=xdtype, device=dev)
+    rvar = torch.ones(col, dtype=torch.float32, device=dev)
+    xvar = _full(torch.as_tensor(xvar0).real.float().mean(), col, torch.float32, dev)
+    for it in range(nit):
+        div = xvar / rvar
+        gain = 1.0 - 1.0 / S_of(-div) if evals_aah is not None else div / delta
+        vhat = damp * ((y - op.mv(x)) + gain * vhat) + (1.0 - damp) * vhat
+        if it == 0:  # the first iteration always takes the residual's power
+            rvar = power(vhat)
+        elif evals_aah is not None:
+            rvar = rvar_bisect(xvar)
+        elif rvar_method == "median":
+            med = _median(vhat.abs().flatten(-len(op.out_shape))).reshape(col)
+            rvar = (math.sqrt(2.0 / math.log(4.0)) * med) ** 2 if xdtype.is_complex else (med / 0.6745) ** 2
+        elif rvar_method == "wvar":
+            rvar = wvar + xvar / delta
+        else:  # 'mean'
+            rvar = power(vhat)
+        rvar = torch.clamp(torch.as_tensor(rvar, dtype=torch.float32, device=dev), min=rvar_min)
+        x, Xvar = prior.estim(x + op.rmv(vhat), rvar)
+        xvar = torch.as_tensor(Xvar, device=dev).real.expand(x.shape).mean(in_dims, keepdim=True)
     return x

@@ -601,3 +601,88 @@ def test_dryrun_one_rank_on_nccl(cuda):
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "backend nccl, device cuda:0" in proc.stdout and "dryrun ok: mesh(dp=1,sp=1,tp=1)" in proc.stdout
+
+
+def test_sparse_admm_launches_both_kernels_and_matches_them_off(cuda):
+    """``sparse_admm`` at the canonical point's shapes (32×4) for B=16, Imax
+    20: Imax + 1 ``dict_correlation`` and Imax ``soft_threshold`` launches,
+    and the kernels on and off give the same S within 1e-4·max|S| and the
+    same NMSE within 1e-3 relative."""
+    from jstsp19_torch.harness import amp_sparse as aps
+    from jstsp19_torch.solvers.sparse import sparse_admm
+
+    bp = aps.to_device(aps.beamspace_problem(batch=16), cuda)
+    dict_correlation.launches = fused_soft_threshold.launches = 0
+    S_on, e_on = sparse_admm(bp["H"], bp["OH"], bp["Dr"], bp["Dt"], 20)
+    torch.cuda.synchronize()
+    assert (dict_correlation.launches, fused_soft_threshold.launches) == (21, 20)
+    S_off, e_off = sparse_admm(bp["H"], bp["OH"], bp["Dr"], bp["Dt"], 20, use_kernels=False)
+    assert float((S_on - S_off).abs().max()) <= 1e-4 * float(S_off.abs().max())
+    assert float(((e_on - e_off).abs() / e_off).max()) <= 1e-3
+
+
+def test_amp_est_and_vamp_slm_launch_their_kernels(cuda):
+    """``amp_est`` on partial-Hadamard problems (B=4, n=4096) launches the
+    FWHT exactly twice an iteration and matches the kernel off within 1e-4
+    of max|x|; ``vamp_slm`` on the canonical VAMP problem (B=8) launches
+    ``dict_correlation`` once and matches the CPU within 1e-3 of max|x|
+    (10 iterations)."""
+    from jstsp19_torch.harness import amp_sparse as aps
+    from jstsp19_torch.ops.kron import KronDictOp
+    from jstsp19_torch.solvers.gamp import amp_est
+    from jstsp19_torch.solvers.vamp_slm import vamp_slm
+
+    prob = hcs.hadamard_cs_problem(batch=4, n=4096)
+    outs = []
+    for flag in (True, False):
+        y, op, prior, _ = aps.hadamard_amp_torch(prob, cuda, use_kernel=flag)
+        fwht_kernel.launches = 0
+        outs.append(amp_est(y, op, prior, nit=20))
+        torch.cuda.synchronize()
+        assert fwht_kernel.launches == (40 if flag else 0)
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-4 * float(outs[1].abs().max())
+    vp = aps.vamp_slm_problem(batch=8)
+    res = {}
+    for dev in (cuda, "cpu"):
+        d = aps.to_device(vp, dev)
+        dict_correlation.launches = 0
+        res[str(dev)] = vamp_slm(aps.vamp_slm_prior(vp["beta"]), d["y"], KronDictOp(d["A"], d["B"]),
+                                 d["gamw"][:, None, None], nit=10).x.cpu()
+        assert dict_correlation.launches == (1 if dev == cuda else 0)
+    assert float((res[str(cuda)] - res["cpu"]).abs().max()) <= 1e-3 * float(res["cpu"].abs().max())
+
+
+def test_new_operators_and_state_evolutions_on_the_card_match_the_cpu(cuda):
+    """``harness/op_check.py`` at small sizes: every new operator within
+    1e-5·max|ref| of the CPU with its adjoint identity to 1e-4, the four
+    state evolutions on the same draws within 1e-4, and the random
+    constructors' structure."""
+    from jstsp19_torch.harness import op_check
+
+    for name, factory in op_check.operator_cases(n=4096, haar_levels=12, image=64, image_levels=3, m=1024,
+                                                 blocks=(8, 32, 64), rbf=(256, 16)):
+        c = op_check.compare_operator(name, factory, cuda)
+        assert c.ok, c
+    for c in op_check.compare_state_evolutions(cuda):
+        assert c.ok, c
+    for what, (value, ok) in op_check.random_op_structure(cuda, 256, 1024, 4, 64).items():
+        assert ok, (what, value)
+
+
+def test_kernels_read_lazily_conjugated_operands_as_their_values(cuda):
+    """``x.mH`` of a column-major x (eigh's eigenvectors) is contiguous with
+    PyTorch's conjugate bit set, its memory unconjugated: each wrapper
+    resolves the bit, so the kernels agree with their plain versions on such
+    operands (``sparse_admm`` passes ``Utᴴ`` to ``dict_correlation``)."""
+    U = torch.linalg.eigh(_crandn(cuda, 4, 4, seed=3) @ _crandn(cuda, 4, 4, seed=3).mH)[1]
+    B = U.mH
+    assert B.is_conj() and B.is_contiguous()
+    A, K = _crandn(cuda, 32, 32, seed=4), _crandn(cuda, 16, 32, 4, seed=5)
+    ref = dict_correlation_plain(A, K, B)
+    assert float((dict_correlation(A, K, B) - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    V = torch.linalg.eigh(_crandn(cuda, 8, 8, seed=7) @ _crandn(cuda, 8, 8, seed=7).mH)[1].mH
+    assert V.is_conj() and V.is_contiguous()
+    assert torch.equal(fused_soft_threshold(V, 0.1), fused_soft_threshold_plain(V, 0.1))
+    W = torch.linalg.eigh(_crandn(cuda, 64, 64, seed=8) @ _crandn(cuda, 64, 64, seed=8).mH)[1].mH
+    assert W.is_conj() and W.is_contiguous()
+    assert torch.equal(fwht_kernel(W), fwht_plain(W))
