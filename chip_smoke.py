@@ -151,6 +151,28 @@ Phases (any failure ends the run with a non-zero exit code and no result):
     every new operator (max|Δ| ≤ 1e-5·max|ref|, adjoint identity to 1e-4),
     the four state evolutions on the same draws (1e-4) and the random
     constructors' structure.
+20. the ninth slice, EM learning and the turbo solvers
+    (``harness/em_turbo.py``): (a) ``em_bg_vamp`` and ``em_gm_vamp`` (JAX
+    defaults) on phase 19c's problem (B=256, ``KronDictOp``): exactly
+    n_em + 1 ``dict_correlation`` launches a solve (9 and 11), the
+    per-realization NMSE within 1e-3 (relative) of a ``KronDictOp`` whose
+    ``rmv`` is the plain version, the batch mean NMSE and the learned noise
+    variance (dB) and activity within 4 combined SE of
+    ``results/torch_em_turbo_jax.json``, best and median of 3 reps of each
+    route; (b) the five turbo solvers (``turbo_markov_vamp``,
+    ``turbo_mrf_vamp``, ``em_turbo_markov_vamp``,
+    ``turbo_gauss_markov_vamp``, ``em_turbo_gauss_markov_vamp``) on the same
+    problem, the chains along the Gr = 32 axis: exactly one launch a round
+    (5, 5, 8, 6, 10), the same gates, and the learned p01, λ, alpha and
+    sigma2 within 4 SE; (c) ``em_nngm_gamp`` on phase 11's problems with
+    the non-negative signal |x|: exactly 2 × 40 × 11 + 10 = 890 FWHT
+    launches, the same gates against the kernel off; (d)
+    ``turbo_mrf3d_vamp`` and ``turbo_mrf_arb_vamp`` on 256 seeds of the
+    JAX tests' problems (``MatrixOp``): the batch mean NMSE within 4 SE;
+    realizations 0-31 re-solved on the CPU and, in float64, on the card and
+    the CPU: the float64 card within 1e-6 of max|x| of the CPU, the float32
+    distances printed (two float32 runs of this ill-conditioned solve
+    differ by up to a few 1e-3).
 
 Then one JSON line with each kernel's launches, error, times and bound (the
 larger of its bytes over 3.35 TB/s and its float32 operations over
@@ -168,6 +190,7 @@ import pathlib
 import re
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -1045,6 +1068,150 @@ def _amp_sparse(root, dev, card, prob_cs) -> dict:
     return {"paths": paths, "errs": errs}
 
 
+def _mean_gate(phase: str, what: str, v: np.ndarray, ref: dict) -> None:
+    """Print a learned hyperparameter's batch mean beside the JAX reference's
+    (``ref``: mean, sd, n) and stop the run unless it lies within 4 combined
+    standard errors."""
+    mean, sd, n = float(v.mean()), float(v.std(ddof=1)), v.size
+    se = math.sqrt(ref["sd"] ** 2 / ref["n"] + sd**2 / n)
+    inside = abs(mean - ref["mean"]) <= 4 * se
+    print(f"{phase} {what}: batch mean {mean:.5g} (sd {sd:.4g}, n {n}) vs JAX {ref['mean']:.5g} (sd {ref['sd']:.4g}, "
+          f"n {ref['n']}): z {(mean - ref['mean']) / max(se, 1e-30):+.2f}, within 4 SE: {inside}")
+    if not inside:
+        raise SystemExit(f"{phase} {what}: batch mean outside 4 SE of the JAX reference")
+
+
+def _em_turbo(root, dev, card) -> dict:
+    """Phase 20; returns {kernel: {path: launches}}."""
+    from jstsp19_torch.harness import amp_sparse as aps
+    from jstsp19_torch.harness import em_turbo as et
+    from jstsp19_torch.harness import hadamard_cs as hcs
+    from jstsp19_torch.kernels.dictionary import dict_correlation, dict_correlation_plain
+    from jstsp19_torch.kernels.wht import fwht_kernel
+    from jstsp19_torch.ops.base import MatrixOp
+    from jstsp19_torch.ops.kron import KronDictOp
+    from jstsp19_torch.solvers import em, turbo, turbo_em
+
+    class PlainKronDictOp(KronDictOp):
+        """A check only: ``rmv`` through the dictionary correlation's plain version."""
+
+        def rmv(self, Y):
+            return dict_correlation_plain(self.A, Y, self.B)
+
+    ref = json.loads((root / "results" / "torch_em_turbo_jax.json").read_text())
+    paths = {"dict_correlation": {"em/turbo [20a]": 0, "em/turbo [20b]": 0}, "fwht": {}}
+    t0 = time.perf_counter()
+
+    def gated(phase, name, solve, rounds, counter, x_true, nmse_db, path):
+        """One solve through the kernel (exactly ``rounds`` launches), one on
+        the plain route (per-realization relative |dNMSE| <= 1e-3), the batch
+        mean NMSE within 4 SE of JAX's, and 3 timed reps of each route."""
+        counter.launches = 0
+        res = solve(True)
+        torch.cuda.synchronize()
+        n = counter.launches
+        print(f"{phase} {name}: {counter.__name__} launches = {n} (need exactly {rounds})")
+        if n != rounds:
+            raise SystemExit(f"{phase} {name} did not go through the kernel once a round")
+        kind, path_n = path
+        paths[kind][path_n] = paths[kind].get(path_n, 0) + n
+        e_on = nmse_db(res.x.cpu().numpy(), x_true)
+        e_off = nmse_db(solve(False).x.cpu().numpy(), x_true)
+        rel = float(np.max(np.abs(10 ** (e_on / 10) - 10 ** (e_off / 10)) / 10 ** (e_off / 10)))
+        ok = bool(np.all(np.isfinite(e_on)) and rel <= 1e-3)
+        print(f"{phase} {name}: NMSE kernel on {e_on.mean():.4f} dB, plain route {e_off.mean():.4f} dB; max "
+              f"per-realization relative |dNMSE| = {rel:.3e}; finite and within 1e-3: {ok}")
+        if not ok:
+            raise SystemExit(f"{phase} {name}: NMSE not finite or the kernel and the plain route disagree")
+        _nmse_gate(phase, name, e_on, ref[name])
+        for label, flag in (("kernel", True), ("plain route", False)):
+            _timed(phase, f"{name}, {label}", lambda: solve(flag), card, reps=3)
+        return res
+
+    # (a) and (b): the EM and turbo solvers on the canonical VAMP problem
+    vp = aps.to_device(aps.vamp_slm_problem(), dev)
+    ops = {True: KronDictOp(vp["A"], vp["B"]), False: PlainKronDictOp(vp["A"], vp["B"])}
+    x_true, beta, gamw = vp["x"].cpu().numpy(), float(vp["beta"]), vp["gamw"][:, None, None]
+    print(f"[20a] the canonical VAMP problem: y {tuple(vp['y'].shape)}, A {tuple(vp['A'].shape)}, "
+          f"B {tuple(vp['B'].shape)} (KronDictOp, one pair a realization), 0 dB")
+    for name, (kw, rounds) in et.EM_SOLVERS.items():
+        res = gated("[20a]", name, lambda flag: getattr(em, name)(vp["y"], ops[flag], **kw), rounds,
+                    dict_correlation, x_true, aps.nmse_db, ("dict_correlation", "em/turbo [20a]"))
+        _mean_gate("[20a]", f"{name} learned noise_var (dB)", 10 * np.log10(res.noise_var.cpu().numpy().ravel()),
+                   ref[name]["params"]["noise_var_db"])
+        _mean_gate("[20a]", f"{name} learned p1", res.prior.p1.cpu().numpy().ravel(), ref[name]["params"]["p1"])
+    for name, (_, rounds) in et.TURBO_SOLVERS.items():
+        args, kw = et.turbo_arguments(name, beta, gamw)
+        fn = getattr(turbo, name, None) or getattr(turbo_em, name)
+        res = gated("[20b]", name, lambda flag: fn(vp["y"], ops[flag], *args, **kw), rounds, dict_correlation,
+                    x_true, aps.nmse_db, ("dict_correlation", "em/turbo [20b]"))
+        for p, stats in ref[name]["params"].items():
+            _mean_gate("[20b]", f"{name} learned {p}", getattr(res, p).cpu().numpy().ravel(), stats)
+
+    # (c) em_nngm_gamp through the FWHT kernel on the non-negative partial-Hadamard problems
+    prob = hcs.hadamard_cs_problem(nonneg=True)
+    routes = {flag: hcs.hadamard_cs_torch(prob, dev, use_kernel=flag) for flag in (True, False)}
+    kw = et.NNGM_KW
+    # 2 transforms a GAMP iteration (op.mv, op.rmv; sq_mv and sq_rmv are means)
+    # over n_em + 1 solves, and one op.mv(xhat) an EM round
+    need = 2 * kw["nit"] * (kw["n_em"] + 1) + kw["n_em"]
+    print(f"[20c] em_nngm_gamp (B, n = {prob['x'].shape}, m {prob['idx'].shape[-1]}, |x| of the Bernoulli-Gaussian "
+          f"draw, {hcs.SNR_DB:g} dB; n_em {kw['n_em']}, nit {kw['nit']})")
+    res = gated("[20c]", "em_nngm_gamp", lambda flag: em.em_nngm_gamp(routes[flag][1].y, routes[flag][2], **kw),
+                need, fwht_kernel, prob["x"], hcs.nmse_db, ("fwht", "em_nngm_gamp [20c]"))
+    _mean_gate("[20c]", "em_nngm_gamp learned noise_var (dB)", 10 * np.log10(res.noise_var.cpu().numpy().ravel()),
+               ref["em_nngm_gamp"]["params"]["noise_var_db"])
+    print(f"[20c] em_nngm_gamp: min x {float(res.x.min()):.3e} (non-negative within 1e-3: "
+          f"{float(res.x.min()) > -1e-3})")
+
+    # (d) the 3-D and arbitrary-adjacency MRF supports: the card against the CPU
+    adj = torch.from_numpy(et.ring_adjacency())
+    cases = (("turbo_mrf3d_vamp", et.clustered_3d_problems(),
+              lambda y, A, d: turbo_em.turbo_mrf3d_vamp(y, MatrixOp(A), et.MRF_SLAB_VAR, et.MRF_GAMW,
+                                                        shape3d=et.SHAPE3D)),
+             ("turbo_mrf_arb_vamp", et.markov_support_problems(),
+              lambda y, A, d: turbo_em.turbo_mrf_arb_vamp(y, MatrixOp(A), et.MRF_SLAB_VAR, et.MRF_GAMW, adj.to(d),
+                                                          coupling=et.ARB_COUPLING, field=et.ARB_FIELD)))
+    # Realizations 0-31 are solved again on the CPU (each realization is solved on its own). In float32 the
+    # solve is ill-conditioned (m < n, gamw 1e3: the Gram's null-space eigenvalues are float32 noise that
+    # gamw scales), so two float32 runs differ by up to a few 1e-3 of max|x| (JAX against the port on the
+    # CPU too); the card is held against the CPU in float64, where that noise is 1e-9 times smaller, and
+    # the float32 distances are printed beside it.
+    n_cpu = 32
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    for name, p, solve in cases:
+        y, A = (torch.from_numpy(p[k]) for k in ("y", "A"))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        x_card = solve(y.to(dev), A.to(dev), dev).x
+        end.record()
+        torch.cuda.synchronize()
+        x_card = x_card.cpu()
+        e = aps.nmse_db(x_card.numpy(), p["x"])
+        print(f"[20d] {name} (B={len(p['y'])}, A {tuple(A.shape[1:])}, MatrixOp): {start.elapsed_time(end) / 1e3:.3f} s "
+              f"on the card (card: {card}); every NMSE finite: {bool(np.all(np.isfinite(e)))}")
+        if not np.all(np.isfinite(e)):
+            raise SystemExit(f"[20d] {name}: an NMSE is not finite")
+        _nmse_gate("[20d]", name, e, ref[name])
+        y64, A64 = y[:n_cpu].to(torch.complex128), A[:n_cpu].to(torch.complex128)
+        x_cpu = solve(y[:n_cpu], A[:n_cpu], "cpu").x
+        x64_cpu = solve(y64, A64, "cpu").x
+        x64_card = solve(y64.to(dev), A64.to(dev), dev).x.cpu()
+        worst = int(((x_card[:n_cpu] - x_cpu).abs().amax(-1)).argmax())
+        r64 = rel(x64_card, x64_cpu)
+        print(f"[20d] {name}, realizations 0-{n_cpu - 1}, max|dx| over max|x|: float32 card against CPU "
+              f"{rel(x_card[:n_cpu], x_cpu):.3e} (largest at realization {worst}), each against float64 on the CPU: "
+              f"card {rel(x_card[:n_cpu], x64_cpu):.3e}, CPU {rel(x_cpu, x64_cpu):.3e}; float64 card against CPU "
+              f"{r64:.3e} <= 1e-6: {r64 <= 1e-6}")
+        if not r64 <= 1e-6:
+            raise SystemExit(f"[20d] {name}: the card and the CPU disagree")
+    print(f"[20] {time.perf_counter() - t0:.1f} s (host clock)")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the GPU", file=sys.stderr)
@@ -1538,6 +1705,13 @@ def main() -> int:
         for path, n in tail["paths"][k["name"]].items():
             k["launches_by_path"][path] = n
             k["launches"] += n
+
+    # ---- 20. the ninth slice: EM learning and the turbo solvers ------------------------
+    em_paths = _em_turbo(root, dev, card)
+    for path, n in em_paths["dict_correlation"].items():
+        kernels[1]["launches_by_path"][path] = n
+        kernels[1]["launches"] += n
+    tail["paths"]["fwht"].update(em_paths["fwht"])
 
     kernels.append({
         "name": "fwht",

@@ -30,15 +30,19 @@ GAMP_NIT, GAMP_STEP = 100, 0.9  # the lean gamp's iterations and step on this sl
 
 
 def hadamard_cs_problem(seed: int = SEED, batch: int = BATCH, n: int = N, m: int = None, eps: float = EPS,
-                        snr_db: float = SNR_DB) -> Dict[str, np.ndarray]:
+                        snr_db: float = SNR_DB, nonneg: bool = False) -> Dict[str, np.ndarray]:
     """``batch`` problems as numpy: x (batch, n) float32, idx (batch, m)
     int64 (sorted, distinct rows), y (batch, m) float32 and wvar (batch,)
     float32, the noise variance that puts the noiseless measurement
     ``snr_db`` above the noise.  m defaults to n/4.  The measurement is
-    computed in float64 from the float32 x."""
+    computed in float64 from the float32 x.  With ``nonneg`` x is |x| of the
+    same Bernoulli–Gaussian draw (the non-negative signal of
+    ``em_nngm_gamp``); the row sets and the noise draws stay the same."""
     m = n // 4 if m is None else m
     rng = np.random.default_rng(seed)
     x = ((rng.random((batch, n)) < eps) * rng.standard_normal((batch, n)) / np.sqrt(eps)).astype(np.float32)
+    if nonneg:
+        x = np.abs(x)
     idx = np.stack([np.sort(rng.choice(n, m, replace=False)) for _ in range(batch)]).astype(np.int64)
     z = np.take_along_axis(fwht_plain(torch.from_numpy(x.astype(np.float64))).numpy(), idx, -1)
     wvar = (z**2).mean(-1) / 10 ** (snr_db / 10)

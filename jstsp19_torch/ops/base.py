@@ -84,13 +84,16 @@ class MatrixOp(LinOp):
         d, V = torch.linalg.eigh(self.A.mH @ self.A)
         return V, None, torch.clamp(d, min=0.0)
 
+    # x is a batch of vectors (..., n), V shared or one per realization: a
+    # matrix product per vector (``V.mH @ x`` would treat the batch as the
+    # columns of one matrix)
     @staticmethod
     def to_eigbasis(V, _unused, x):
-        return V.mH @ x
+        return _matvec(V.mH, x)
 
     @staticmethod
     def from_eigbasis(V, _unused, xt):
-        return V @ xt
+        return _matvec(V, xt)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,7 +3,10 @@ SVT/ADMM matrix completions (``mc_svt``, ``mc_admm``), the proposed ADMM, the
 baselines LS, OMP (``omp``, ``omp_gram``, the time-domain ``omp_td``,
 MMV-OMP) and CoSaMP, VAMP-GLM with its state evolution, VAMP-SLM, the 45
 scalar estimators, the GAMP core (``gamp_est``, ``gamp``, ``amp``,
-``amp_est`` with S-AMP, ``fista``, ``sure_amp``) and GAMP's state evolution.
+``amp_est`` with S-AMP, ``fista``, ``sure_amp``), GAMP's state evolution,
+the EM solvers (``em_bg_vamp``, ``em_gm_vamp``, ``em_nngm_gamp``) and the
+turbo solvers with structured supports and amplitudes (``turbo_*``,
+``em_turbo_*``, ``markov_fb``).
 
 The names the JAX package's ``solvers`` exports and the port has are
 exported here under the same names, each imported on first use (the kernel
@@ -36,6 +39,12 @@ _EXPORTS = {
     "vamp_slm_se": "vamp_slm",
     **dict.fromkeys(("EstimInAvg", "AwgnOutAvg", "MCOutAvg", "estim_in_avg", "bg_sampler", "s_transform"),
                     "gamp_se"),
+    **dict.fromkeys(("EmGmResult", "EmGmFullResult", "EmNNGMResult", "em_bg_vamp", "em_gm_vamp", "em_nngm_gamp"),
+                    "em"),
+    **dict.fromkeys(("TurboResult", "turbo_markov_vamp", "turbo_gauss_markov_vamp", "turbo_mrf_vamp"), "turbo"),
+    **dict.fromkeys(("EmTurboResult", "EmGaussMarkovResult", "TurboResult3D", "em_turbo_markov_vamp",
+                     "em_turbo_gauss_markov_vamp", "turbo_mrf3d_vamp", "turbo_mrf_arb_vamp", "markov_fb"),
+                    "turbo_em"),
 }
 __all__ = sorted(_EXPORTS)
 

@@ -686,3 +686,46 @@ def test_kernels_read_lazily_conjugated_operands_as_their_values(cuda):
     W = torch.linalg.eigh(_crandn(cuda, 64, 64, seed=8) @ _crandn(cuda, 64, 64, seed=8).mH)[1].mH
     assert W.is_conj() and W.is_contiguous()
     assert torch.equal(fwht_kernel(W), fwht_plain(W))
+
+
+def test_kron_dict_op_whole_on_the_card_matches_the_cpu(cuda):
+    """``KronDictOp``'s ``sq_mv``, ``sq_rmv``, ``gram``, ``gram_out``,
+    ``pinv_rmv`` and ``materialize`` at the canonical VAMP shapes (B=8, A
+    32×32, B 16×16, one pair a realization): the card within 1e-5·max|ref|
+    of the CPU (``pinv_rmv``: 1e-4, two SVDs)."""
+    from jstsp19_torch.ops.kron import KronDictOp
+
+    A, Bm, S, Y = (_crandn("cpu", 8, *shape, seed=s) for s, shape in enumerate(((32, 32), (16, 16), (32, 16),
+                                                                                 (32, 16))))
+    ops = {d: KronDictOp(A.to(d), Bm.to(d)) for d in ("cpu", cuda)}
+    for method, arg, tol in (("sq_mv", S.abs(), 1e-5), ("sq_rmv", Y.abs(), 1e-5), ("gram", S, 1e-5),
+                             ("gram_out", Y, 1e-5), ("pinv_rmv", Y, 1e-4)):
+        ref = getattr(ops["cpu"], method)(arg)
+        got = getattr(ops[cuda], method)(arg.to(cuda)).cpu()
+        assert float((got - ref).abs().max()) <= tol * float(ref.abs().max()), method
+    ref = ops["cpu"].materialize()
+    assert float((ops[cuda].materialize().cpu() - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+def test_em_and_turbo_solvers_launch_dict_correlation_once_a_round(cuda):
+    """``em_bg_vamp`` (n_em 2: 3 inner solves) and ``turbo_markov_vamp``
+    (n_turbo 2) on the canonical VAMP problem at B=8, 10 inner iterations:
+    exactly one ``dict_correlation`` launch an inner solve on the card, none
+    on the CPU, and x within 1e-3·max|x| of the CPU's."""
+    from jstsp19_torch.harness import amp_sparse as aps
+    from jstsp19_torch.ops.kron import KronDictOp
+    from jstsp19_torch.solvers.em import em_bg_vamp
+    from jstsp19_torch.solvers.turbo import turbo_markov_vamp
+
+    vp = aps.vamp_slm_problem(batch=8)
+    beta = float(vp["beta"])
+    for solve, rounds in ((lambda d, op: em_bg_vamp(d["y"], op, n_em=2, nit=10), 3),
+                          (lambda d, op: turbo_markov_vamp(d["y"], op, 1 / beta, d["gamw"][:, None, None],
+                                                           n_turbo=2, nit=10), 2)):
+        res = {}
+        for dev in ("cpu", cuda):
+            d = aps.to_device(vp, dev)
+            dict_correlation.launches = 0
+            res[str(dev)] = solve(d, KronDictOp(d["A"], d["B"])).x.cpu()
+            assert dict_correlation.launches == (rounds if dev == cuda else 0)
+        assert float((res[str(cuda)] - res["cpu"]).abs().max()) <= 1e-3 * float(res["cpu"].abs().max())
