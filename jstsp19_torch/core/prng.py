@@ -60,3 +60,40 @@ def complex_normal(
     x = torch.randn((2, *shape), generator=gen, dtype=rdt, device=gen.device)
     scale = torch.sqrt(torch.as_tensor(var, dtype=rdt, device=gen.device) / 2)
     return torch.complex(x[0], x[1]) * scale
+
+
+# -- JAX's key derivations for the solvers that take a key ----------------------
+#
+# A solver that takes a JAX key takes a ``torch.Generator`` in its place and
+# derives sub-streams with these three helpers, so that every draw a solver
+# makes goes through ``normal``.  ``fold_in`` and ``split`` leave their
+# argument's state alone, as JAX's do: they seed new generators on the same
+# device from the argument's seed.
+
+
+def fold_in(gen: torch.Generator, data: int) -> torch.Generator:
+    """A generator derived from ``gen``'s seed and ``data`` (``jax.random.fold_in``)."""
+    g = torch.Generator(device=gen.device)
+    g.manual_seed(int(np.random.SeedSequence([gen.initial_seed(), 1, data]).generate_state(1, np.uint64)[0]))
+    return g
+
+
+def split(gen, n: int):
+    """``n`` generators derived from ``gen`` (``jax.random.split``); a key of
+    None, which a solver given explicit initial values never reads, splits
+    into Nones."""
+    if gen is None:
+        return (None,) * n
+    out = []
+    for i in range(n):
+        g = torch.Generator(device=gen.device)
+        g.manual_seed(int(np.random.SeedSequence([gen.initial_seed(), 2, i]).generate_state(1, np.uint64)[0]))
+        out.append(g)
+    return tuple(out)
+
+
+def normal(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
+    """Standard normal draws of ``shape`` (its leading axis the batch) in the
+    real ``dtype``, made on ``gen``'s device and moved to ``device``: a CPU
+    generator gives a card run the CPU's numbers."""
+    return torch.randn(tuple(shape), generator=gen, dtype=dtype, device=gen.device).to(device)

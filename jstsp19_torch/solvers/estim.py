@@ -29,6 +29,7 @@ _EPS32 = torch.finfo(torch.float32).eps
 _LOG_PI = math.log(math.pi)
 _LOG_2PI = math.log(2 * math.pi)
 _LOG_2 = 0.6931472  # log 2, as JAX's _log1mexp writes it
+_TAIL = 12.0  # standard deviations beyond which a half-line's moments take the Mills-ratio series
 
 
 def _log(v):
@@ -118,7 +119,16 @@ def _tn_moments(phat, pvar, lo, hi):
     so that extreme truncation stays finite.  For a finite interval pvar is
     capped at 1e2·width² (the float32 guard of the JAX package: beyond it
     the raw formulas cancel, and the capped moments are exact to float32);
-    half-lines (±inf endpoints) are left uncapped."""
+    half-lines (±inf endpoints) are left uncapped.
+
+    A half-line more than ``_TAIL`` standard deviations from phat takes the
+    asymptotic series of the inverse Mills ratio instead (here the port
+    departs from the JAX formula, which it equals to 1e-5 at the switch):
+    there φ(a)/Z is exp of a difference of terms of order a²/2, whose
+    float32 rounding (ulp(a²/2)) grows without bound — at a ~ 1e5 it is
+    e^±512, and the mean comes out ±inf or of the wrong sign, where the
+    truncated mean is the edge plus σ/a and the variance (σ/a)².  BiG-AMP's
+    non-negative priors (``hutamp``) reach such a on a diverging step."""
     ref = phat if isinstance(phat, torch.Tensor) else pvar
     phat, pvar, lo, hi = (_t(v, ref) for v in (phat, pvar, lo, hi))
     width2 = (hi - lo) ** 2
@@ -136,6 +146,17 @@ def _tn_moments(phat, pvar, lo, hi):
     bpb = torch.where(torch.isfinite(b), b * pb, 0.0)
     mean = phat + sig * (pa - pb)
     t = 1.0 + (apa - bpb) - (pa - pb) ** 2
+    # far-tail half-lines, [lo, ∞) with a > _TAIL or (−∞, hi] with b < −_TAIL:
+    # λ(c) − c = 1/c − 2/c³ + 10/c⁵ − 74/c⁷ + 706/c⁹ and
+    # Var/σ² = 1/c² − 6/c⁴ + 50/c⁶ − 518/c⁸, c = a or −b
+    lower = torch.isinf(hi) & torch.isfinite(lo) & (a > _TAIL)
+    upper = torch.isinf(lo) & torch.isfinite(hi) & (b < -_TAIL)
+    c = torch.clamp(torch.where(upper, -b, a), min=_TAIL)
+    ic2 = 1.0 / c**2
+    delta = (1.0 - ic2 * (2.0 - ic2 * (10.0 - ic2 * (74.0 - 706.0 * ic2)))) / c
+    t_tail = ic2 * (1.0 - ic2 * (6.0 - ic2 * (50.0 - 518.0 * ic2)))
+    mean = torch.where(lower, lo + sig * delta, torch.where(upper, hi - sig * delta, mean))
+    t = torch.where(lower | upper, t_tail, t)
     return mean, torch.clamp(pvar * t, min=1e-30), logZ
 
 

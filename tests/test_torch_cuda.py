@@ -729,3 +729,46 @@ def test_em_and_turbo_solvers_launch_dict_correlation_once_a_round(cuda):
             res[str(dev)] = solve(d, KronDictOp(d["A"], d["B"])).x.cpu()
             assert dict_correlation.launches == (rounds if dev == cuda else 0)
         assert float((res[str(cuda)] - res["cpu"]).abs().max()) <= 1e-3 * float(res["cpu"].abs().max())
+
+
+def test_bilinear_solvers_on_the_card_match_the_cpu_in_float64_and_launch_no_kernel(cuda):
+    """``bigamp_pev`` (the adaptive step decided per realization),
+    ``em_bigamp_mc`` (the rank per realization), ``hutamp`` and ``pbigamp`` in
+    complex128/float64 on the card and on the CPU from the same draws (a CPU
+    generator's): Z within 1e-9·max|Z|, the same ranks; none of the four
+    kernels launched."""
+    from jstsp19_torch.solvers.bigamp import em_bigamp_mc
+    from jstsp19_torch.solvers.bigamp_full import BigAmpOptions, bigamp_pev
+    from jstsp19_torch.solvers.estim import CAwgnPrior, SparsePrior
+    from jstsp19_torch.solvers.hutamp import hutamp
+    from jstsp19_torch.solvers.pbigamp import pbigamp
+
+    rng = np.random.default_rng(0)
+    B, L, M = 4, 20, 24
+    Z = (rng.standard_normal((B, L, 2)) + 1j * rng.standard_normal((B, L, 2))) @ (
+        rng.standard_normal((B, 2, M)) + 1j * rng.standard_normal((B, 2, M))) / 2
+    mask = (rng.random((B, L, M)) < 0.7).astype(np.float64)
+    Y = torch.from_numpy((Z + 0.02 * rng.standard_normal(Z.shape)) * mask)
+    mask = torch.from_numpy(mask)
+    H = torch.from_numpy(np.abs(rng.standard_normal((B, 30, 10))) + 0.5)
+    A = torch.from_numpy((rng.standard_normal((B, 20, 4, 8)) + 1j * rng.standard_normal((B, 20, 4, 8))) / 8)
+    y = torch.from_numpy(rng.standard_normal((B, 20)) + 1j * rng.standard_normal((B, 20)))
+    g = CAwgnPrior(0j, 1.0)
+    solves = (
+        lambda d: bigamp_pev(Y.to(d), mask.to(d), 2, g, g, 1e-3, torch.Generator().manual_seed(0),
+                             BigAmpOptions(nit=40)).Z,
+        lambda d: (lambda r: (r.Z, r.rank))(em_bigamp_mc(Y.to(d), mask.to(d), 3, torch.Generator().manual_seed(1),
+                                                         nit=30, n_em=2, step=0.5)),
+        lambda d: hutamp(H.to(d), 3, torch.Generator().manual_seed(2), nit=30, n_em=2).Z,
+        lambda d: pbigamp(y.to(d), A.to(d), CAwgnPrior(1.0 + 0j, 0.05), SparsePrior(CAwgnPrior(0j, 2.0), 0.4), 1e-3,
+                          torch.Generator().manual_seed(3), nit=30).z,
+    )
+    kernels = (fused_tracked_admm, dict_correlation, fused_soft_threshold, fwht_kernel)
+    before = [k.launches for k in kernels]
+    for solve in solves:
+        got, ref = solve(cuda), solve("cpu")
+        if isinstance(ref, tuple):
+            assert torch.equal(got[1].cpu(), ref[1])
+            got, ref = got[0], ref[0]
+        assert float((got.cpu() - ref).abs().max()) <= 1e-9 * float(ref.abs().max())
+    assert [k.launches for k in kernels] == before
