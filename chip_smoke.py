@@ -191,12 +191,36 @@ Phases (any failure ends the run with a non-zero exit code and no result):
     the transition, JAX's own fit lies 0.11 and 0.18 from it: printed); the share of realizations that
     meet the JAX test's own threshold; realizations 0-31 of each problem
     solved in complex128/float64 on the card and on the CPU (the CPU's
-    solves in a process beside the card's), max|ΔZ| ≤ 1e-6·max|Z| over the
+    solves in a process started after [1], beside the card's phases),
+    max|ΔZ| ≤ 1e-6·max|Z| over the
     realizations the CPU keeps finite (the card's non-finite on exactly the
     others) and the same selected ranks, the float32 card's distance from the
     float64 CPU printed; best and median of 3
     reps of each solver; the four kernels' launch counts unchanged (no
     kernel is on this path).
+22. the eleventh slice, the 21 worked examples (``jstsp19_torch/examples/``,
+    each the problem and printout of a JAX ``examples/*.py`` script, at its
+    documented sizes): (a) ``python -m jstsp19_torch demo`` lists the 21, and
+    ``python -m jstsp19_torch demo <name>`` runs each on the card in a
+    process of its own: exit 0, every printed number finite, the printed
+    labels those of ``results/torch_examples_jax.json`` (the JAX scripts'
+    printout; ``large_array_sharded``'s header names its ranks where JAX
+    names its mesh); (b) each example's ``solve`` on the card and on the CPU
+    (in the process of [21]'s CPU solves, after them) on the port's own
+    draws, drawn on the CPU: every number within the example's
+    ``TOLERANCE`` (``CARD_TOLERANCE`` where float32 roundoff moves a number
+    further, with its measured reason; in float64 on both, the float32
+    distance printed, where the example has ``FLOAT64``); (c) the routes of
+    ``KronDictOp.rmv``: ``sparse_recovery`` and ``s_amp`` take
+    ``torch.matmul`` (their operators are a real one and one whose A the
+    kernel's shared memory cannot hold), a VAMP-shape operator the kernel
+    (equal to the plain version); every example's kernel launches, read
+    across its first solve, are exactly those the routes give: none but
+    ``channel_estimation``'s pipeline (each ADMM method's two per-op
+    kernels once an iteration, VAMP's adjoint once an iteration); (d)
+    ``large_array_sharded`` over 2 ranks sharing the card (gloo) equals one
+    process to rtol 1e-6; (e) each example's ``solve`` time on the card, best
+    of 3, and the phase's wall time.
 
 Then one JSON line with each kernel's launches, error, times and bound (the
 larger of its bytes over 3.35 TB/s and its float32 operations over
@@ -226,6 +250,7 @@ NRF_MR = (4, 8, 12, 16)
 NV_5DB = 10 ** (-0.5)
 NOISE_VAR = 1.0  # 0 dB
 TIMED_CALLS = 200
+BILINEAR_CPU_REALIZATIONS = 32  # [21]'s float64 card-against-CPU check, realizations 0-31
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth, published
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
 FWHT_NS = (2, 64, 4096, *(1 << k for k in range(14, 21)))  # every boundary of plan_fwht
@@ -1352,12 +1377,12 @@ def _cpu_gen():
     return torch.Generator().manual_seed(0)
 
 
-def _bilinear_cpu_half(n_cpu: int, queue) -> None:
+def _bilinear_cpu_half(n_cpu: int, queue, threads=None) -> None:
     """The CPU's half of phase 21's card-against-CPU check, in a process of
     its own (a thread would share the interpreter lock with the card's launch
     loop): each case's first ``n_cpu`` realizations in float64, put on
     ``queue`` with the seconds it took."""
-    threads = max(1, (os.cpu_count() or 2) - 2)  # a core for the card's launch loop
+    threads = threads or max(1, (os.cpu_count() or 2) - 2)  # a core for the card's launch loop
     torch.set_num_threads(threads)
     t = time.perf_counter()
 
@@ -1369,9 +1394,10 @@ def _bilinear_cpu_half(n_cpu: int, queue) -> None:
     queue.put((out, time.perf_counter() - t, threads))
 
 
-def _bilinear(root, dev, card, counters) -> None:
+def _bilinear(root, dev, card, counters, cpu=None) -> None:
     """Phase 21: the bilinear solvers.  No kernel is on their path, so the
-    four kernels' launch counts must not move."""
+    four kernels' launch counts must not move.  ``cpu``: the (process,
+    queue) of :func:`_start_cpu_halves`, else the CPU's half starts here."""
     import multiprocessing
     import queue as queue_module
 
@@ -1382,11 +1408,14 @@ def _bilinear(root, dev, card, counters) -> None:
     ref = json.loads((root / "results" / "torch_bilinear_jax.json").read_text())
     before = {name: fn.launches for name, fn in counters.items()}
     t0 = time.perf_counter()
-    n_cpu = 32
-    ctx = multiprocessing.get_context("spawn")
-    queue = ctx.Queue()
-    cpu_half = ctx.Process(target=_bilinear_cpu_half, args=(n_cpu, queue), daemon=True)
-    cpu_half.start()
+    n_cpu = BILINEAR_CPU_REALIZATIONS
+    if cpu is None:
+        ctx = multiprocessing.get_context("spawn")
+        queue = ctx.Queue()
+        cpu_half = ctx.Process(target=_bilinear_cpu_half, args=(n_cpu, queue), daemon=True)
+        cpu_half.start()
+    else:
+        cpu_half, queue = cpu
     try:
         # the card's side: every case at B=256 and its gates, then its first 32 realizations in float64 and
         # float32 from the CPU's draws, while the CPU's half runs; then the comparison and the timed reps
@@ -1511,14 +1540,277 @@ def _bilinear(root, dev, card, counters) -> None:
             d = _on(arrays, dev)
             _timed(phase, name, lambda: fn(d, torch.Generator(device=dev).manual_seed(0)), card, reps=3)
     finally:
-        if cpu_half.is_alive():
-            cpu_half.terminate()
-        cpu_half.join()
+        if cpu is None:
+            if cpu_half.is_alive():
+                cpu_half.terminate()
+            cpu_half.join()
     moved = {name: fn.launches - before[name] for name, fn in counters.items()}
     print(f"[21] kernel launches across [21]: {moved}; none moved: {not any(moved.values())}")
     if any(moved.values()):
         raise SystemExit("[21] a kernel launched on the bilinear solvers' path")
     print(f"[21] {time.perf_counter() - t0:.1f} s (host clock)")
+
+
+def _widened(problem: dict) -> dict:
+    """The problem's float32 and complex64 tensors as float64 and complex128."""
+    wide = {torch.float32: torch.float64, torch.complex64: torch.complex128}
+    return {k: v.to(wide[v.dtype]) if isinstance(v, torch.Tensor) and v.dtype in wide else v
+            for k, v in problem.items()}
+
+
+def _examples_half(names, device: str, queue, wide=(), threads=3) -> None:
+    """One part of phase 22's solves, in a process of its own: each example
+    of ``names`` on the port's draws (drawn on the CPU) on ``device``; on
+    the card three timed solves, the four kernels' launches and
+    ``KronDictOp.rmv``'s routes read across the first.  Then one solve of
+    each example of ``wide`` on its problem in float64.  Puts ``(name,
+    result)`` on ``queue`` as each ends, then ``(None, seconds)``."""
+    from jstsp19_torch.examples import _common
+    from jstsp19_torch.kernels import admm_fused, dictionary, softthresh, wht
+    from jstsp19_torch.ops import KronDictOp
+
+    t0 = time.perf_counter()
+    card = device == "cuda"
+    torch.set_num_threads(1 if card else threads)  # the card's launch loops and the launcher's processes keep the rest
+    counters = {"fused_tracked_admm": admm_fused.fused_tracked_admm, "dict_correlation": dictionary.dict_correlation,
+                "soft_threshold": softthresh.fused_soft_threshold, "fwht": wht.fwht_kernel}
+    for name in names:
+        mod = __import__(f"jstsp19_torch.examples.{name}", fromlist=["solve"])
+        p = mod.build(torch.device(device), _common.generator(mod.SEED))
+        if not card:
+            queue.put((name, {"got": mod.solve(p)}))
+            continue
+        before = {k: fn.launches for k, fn in counters.items()}
+        routes = (KronDictOp.kernel_rmvs, KronDictOp.matmul_rmvs)
+        times = []
+        for rep in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = mod.solve(p)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            if rep == 0:
+                first = got
+                moved = {k: fn.launches - before[k] for k, fn in counters.items()}
+                rmvs = (KronDictOp.kernel_rmvs - routes[0], KronDictOp.matmul_rmvs - routes[1])
+        queue.put((name, {"got": first, "times": times, "moved": moved, "rmvs": rmvs}))
+    for name in wide:
+        mod = __import__(f"jstsp19_torch.examples.{name}", fromlist=["solve"])
+        p = _widened(mod.build(torch.device(device), _common.generator(mod.SEED)))
+        queue.put((name, {"got64": mod.solve(p), "device": device}))
+    queue.put((None, time.perf_counter() - t0))
+
+
+def _wide_examples():
+    """The examples held in float64 on both sides ([22]b)."""
+    from jstsp19_torch.examples import NAMES
+
+    return tuple(n for n in NAMES
+                 if getattr(__import__(f"jstsp19_torch.examples.{n}", fromlist=["solve"]), "FLOAT64", False))
+
+
+def _cpu_halves(q21, q22, threads: int) -> None:
+    """The CPU's halves of phases 21's and 22's card-against-CPU checks, one
+    after the other in one process."""
+    from jstsp19_torch.examples import NAMES
+
+    _bilinear_cpu_half(BILINEAR_CPU_REALIZATIONS, q21, threads)
+    _examples_half(NAMES, "cpu", q22, _wide_examples(), threads)
+
+
+def _start_cpu_halves(threads: int = 3):
+    """Start :func:`_cpu_halves` in a process of its own, so that the CPU's
+    work of phases 21 and 22 runs beside the card's phases before them and
+    neither phase waits for it (``threads`` intra-op threads leave the other
+    cores to the card's launch loop).  Returns ``(process, phase 21's queue),
+    (process, phase 22's queue)``."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    q21, q22 = ctx.Queue(), ctx.Queue()
+    proc = ctx.Process(target=_cpu_halves, args=(q21, q22, threads), daemon=True)
+    proc.start()
+    return (proc, q21), (proc, q22)
+
+
+def _demo_process(args, timeout: float = 600):
+    """(exit code, output, errors, seconds) of ``python <args>`` from the checkout."""
+    import subprocess
+
+    root = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, OMP_NUM_THREADS="2")  # beside the solves' processes, on the host's few cores
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=root, capture_output=True, text=True, timeout=timeout,
+                          env=env)
+    return proc.returncode, proc.stdout, proc.stderr, time.perf_counter() - t
+
+
+def _examples(root, dev, card, cpu=None) -> dict:
+    """Phase 22: the worked examples.  Returns each kernel's launches across
+    the examples' first solves on the card.  ``cpu``: the (process, queue)
+    of :func:`_start_cpu_halves`, else the CPU's half starts here."""
+    import multiprocessing
+    import queue as queue_module
+    from concurrent.futures import ThreadPoolExecutor
+
+    from jstsp19_torch.examples import NAMES, _common
+    from jstsp19_torch.examples import channel_estimation as ce
+    from jstsp19_torch.kernels.dictionary import dict_correlation, dict_correlation_plain
+    from jstsp19_torch.ops import KronDictOp
+
+    t0 = time.perf_counter()
+    ref = json.loads((root / "results" / "torch_examples_jax.json").read_text())["examples"]
+    # the solves in processes beside this one, all started together: S-AMP (launch-bound, ~25,000 kernels an
+    # iteration) alone on the card; the other 20, then the FLOAT64 examples in float64, on the card; all 21, then
+    # the FLOAT64 ones in float64, on the CPU (unless that process started before); and every example through
+    # the launcher, three at a time
+    ctx = multiprocessing.get_context("spawn")
+    slow = ("s_amp",)
+    wide = _wide_examples()
+    parts = [(slow, "cuda", ()), (tuple(n for n in NAMES if n not in slow), "cuda", wide)]
+    if cpu is None:
+        queue = ctx.Queue()
+        parts.append((NAMES, "cpu", wide))
+        cpu_half = None
+    else:
+        cpu_half, queue = cpu
+    halves = [ctx.Process(target=_examples_half, args=(names, device, queue, w), daemon=True)
+              for names, device, w in parts]
+    for h in halves:
+        h.start()
+    ends = len(halves) + (cpu_half is not None)
+    pool = ThreadPoolExecutor(max_workers=3)
+    runs = {name: pool.submit(_demo_process, ["-m", "jstsp19_torch", "demo", name])
+            for name in slow + tuple(n for n in NAMES if n not in slow)}  # the slowest first
+    runs["listing"] = pool.submit(_demo_process, ["-m", "jstsp19_torch", "demo"])
+    runs["ranks 2"] = pool.submit(_demo_process, ["-m", "jstsp19_torch.examples.large_array_sharded", "--ranks", "2",
+                                                  "--labels"])
+    launches_total = {name: 0 for name in ("fused_tracked_admm", "dict_correlation", "soft_threshold", "fwht")}
+    try:
+        # (a) the listing
+        rc, out, err, _ = runs["listing"].result()
+        listed = [ln.split()[0] for ln in out.splitlines()[1:]]
+        print(f"[22] demo lists {len(listed)} examples; they are the JAX scripts' ({len(ref)}): "
+              f"{rc == 0 and listed == list(NAMES) == sorted(ref)}")
+        if not (rc == 0 and listed == list(NAMES) == sorted(ref)):
+            raise SystemExit(f"[22] demo's listing is not the JAX scripts': {listed}\n{err}")
+        # (c) a VAMP-shape operator ([19c]: K (256, 4, 16), A (256, 4, 32), B (256, 16, 16)) takes the kernel
+        g = torch.Generator(device=dev).manual_seed(22)
+        A, B, K = (torch.randn(*sh, generator=g, device=dev, dtype=torch.complex64)
+                   for sh in ((256, 4, 32), (256, 16, 16), (256, 4, 16)))
+        n0, r0 = dict_correlation.launches, KronDictOp.kernel_rmvs
+        got_k = KronDictOp(A, B).rmv(K)
+        want_k = dict_correlation_plain(A, K, B)
+        err_k = float((got_k - want_k).abs().max() / want_k.abs().max())
+        ok = dict_correlation.launches == n0 + 1 and KronDictOp.kernel_rmvs == r0 + 1 and err_k <= 1e-5
+        print(f"[22] KronDictOp.rmv at [19c]'s shapes: the kernel's route, one launch, max|d|/max|ref| {err_k:.2e} "
+              f"<= 1e-5: {ok}")
+        if not ok:
+            raise SystemExit("[22] a VAMP-shape KronDictOp did not take the kernel's route")
+
+        # (b, c, e) the halves' results as they come
+        on_card, on_cpu, wide_got, ended = {}, {}, {"cuda": {}, "cpu": {}}, 0
+        while ended < ends:
+            try:
+                name, res = queue.get(timeout=5)
+            except queue_module.Empty:
+                dead = [h.exitcode for h in halves + [cpu_half] if h and not h.is_alive() and h.exitcode != 0]
+                if dead:
+                    raise SystemExit(f"[22] a process of the solves ended with code {dead[0]}")
+                continue
+            if name is None:
+                ended += 1
+                print(f"[22] a process of the solves ended after {res:.1f} s (host clock)")
+                continue
+            if "got64" in res:
+                wide_got[res["device"]][name] = res["got64"]
+                continue
+            if "times" not in res:
+                on_cpu[name] = res["got"]
+                continue
+            on_card[name] = res["got"]
+            moved, (kernel_rmvs, matmul_rmvs), times = res["moved"], res["rmvs"], res["times"]
+            for k, n in moved.items():
+                launches_total[k] += n
+            # only channel_estimation's pipeline launches: each ADMM method ('eigh', unfused) one dict_correlation
+            # and one soft_threshold an iteration, VAMP's adjoint one kernel-route rmv an iteration
+            want = dict(fused_tracked_admm=0, dict_correlation=0, soft_threshold=0, fwht=0)
+            want_rmvs = 0
+            if name == "channel_estimation":
+                pc = ce.PC
+                admm = sum(m in ("proposed", "proposed_angles") for m in pc.methods) * pc.Imax
+                want_rmvs = pc.vamp_nit if "vamp" in pc.methods else 0
+                want.update(dict_correlation=admm + want_rmvs, soft_threshold=admm)
+            ok = moved == want and kernel_rmvs == want_rmvs
+            if name in ("sparse_recovery", "s_amp"):
+                ok = ok and matmul_rmvs > 0 and kernel_rmvs == 0
+            print(f"[22] {name}: solve best of 3 {min(times):.3f} s (first {times[0]:.3f} s; card: {card}); "
+                  f"launches {moved}; KronDictOp.rmv kernel route {kernel_rmvs}, matmul route {matmul_rmvs}; "
+                  f"as the routes say ({want}, kernel-route rmvs {want_rmvs}): {ok}")
+            if not ok:
+                raise SystemExit(f"[22] {name}: kernel launches or routes not as the routes say")
+
+        # (a) the launcher's processes
+        for name in NAMES:
+            rc, out, err, secs = runs[name].result()
+            lines = out.splitlines()
+            nums = _common.parse(lines)
+            want = {k for k in ref[name]["numbers"] if not (name == "large_array_sharded" and k.startswith("00 "))}
+            have = {k for k in nums if not (name == "large_array_sharded" and k.startswith("00 "))}
+            finite = all(math.isfinite(v) for v in nums.values())
+            header = name != "large_array_sharded" or (lines[:1] and lines[0].startswith("ranks 1, "))
+            ok = rc == 0 and finite and have == want and len(lines) == len(ref[name]["lines"]) and header
+            print(f"[22] demo {name}: exit {rc} in {secs:.1f} s (host clock); {len(lines)} lines, numbers finite: "
+                  f"{finite}; labels those of the JAX script: {have == want}")
+            if not ok:
+                raise SystemExit(f"[22] demo {name} failed or printed other lines\n{out}\n{err[-2000:]}")
+        # (d) 2 ranks sharing the card against one process
+        rc, out, err, secs = runs["ranks 2"].result()
+        if rc != 0:
+            raise SystemExit(f"[22] large_array_sharded --ranks 2 exited {rc}\n{err[-2000:]}")
+        two = json.loads(next(ln for ln in out.splitlines() if ln.startswith("{")))
+        one = on_card["large_array_sharded"]
+        bad = [k for k in one if not k.startswith("00 ") and not abs(two[k] - one[k]) <= 1e-6 * abs(one[k])]
+        print(f"[22] large_array_sharded over 2 ranks sharing the card (gloo), {secs:.1f} s: every number but the "
+              f"header's within rtol 1e-6 of one process: {not bad}; ranks {two[next(iter(two))]:.0f}")
+        if bad:
+            raise SystemExit(f"[22] 2 ranks differ from one process at {bad}")
+
+        # (b) the card against the CPU (in float64 where the example says float32 cannot show it)
+        def worst(got, ref, table):
+            """The largest relative |d| but on the Monte-Carlo labels (the SEs the card's generator draws)."""
+            return max((abs(got[k] - v) / max(abs(v), 1e-30) for k, v in ref.items() if k in got and math.isfinite(v)
+                        and _common.tolerance(k, table, False)[0] != "mc"), default=0.0)
+
+        disagree = []
+        for name in NAMES:
+            mod = __import__(f"jstsp19_torch.examples.{name}", fromlist=["solve"])
+            table = getattr(mod, "CARD_TOLERANCE", mod.TOLERANCE)
+            if name in wide:
+                card64, cpu64 = wide_got["cuda"][name], wide_got["cpu"][name]
+                bad = _common.mismatches(card64, cpu64, table)
+                print(f"[22] {name}: card against CPU in float64, {len(cpu64)} numbers, largest relative |d| (the "
+                      f"Monte-Carlo SEs aside) {worst(card64, cpu64, table):.2e}, all within the example's tolerance: "
+                      f"{not bad}; in float32 {worst(on_card[name], on_cpu[name], table):.2e} (printed)")
+            else:
+                bad = _common.mismatches(on_card[name], on_cpu[name], table)
+                print(f"[22] {name}: card against CPU, {len(on_cpu[name])} numbers, largest relative |d| (the "
+                      f"Monte-Carlo SEs aside) {worst(on_card[name], on_cpu[name], table):.2e}; all within the "
+                      f"example's tolerance: {not bad}")
+            if bad:
+                print(f"[22] {name}: the card and the CPU disagree: {bad}")
+                disagree.append(name)
+        if disagree:
+            raise SystemExit(f"[22] the card and the CPU disagree on {disagree}")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        for h in halves:
+            if h.is_alive():
+                h.terminate()
+            h.join()
+    print(f"[22] kernel launches across the examples' first solves: {launches_total}")
+    print(f"[22] {time.perf_counter() - t0:.1f} s (host clock)")
+    return launches_total
 
 
 def main() -> int:
@@ -1555,6 +1847,8 @@ def main() -> int:
     for module in (admm_fused, dictionary, softthresh, wht):
         module._library()
     _print_build("[1]", "admm_fused", build_seconds)
+    # the CPU's halves of [21]'s and [22]'s card-against-CPU checks, in a process beside phases [2]-[20]
+    cpu_21, cpu_22 = _start_cpu_halves()
 
     # ---- 2. kernel against its plain version, B=8, Imax=25 ---------------------
     pc = PointConfig(methods=("proposed", "proposed_angles"), svt_method="fused")
@@ -2024,7 +2318,17 @@ def main() -> int:
 
     # ---- 21. the tenth slice: the bilinear solvers (no kernel on this path) -------------
     _bilinear(root, dev, card, {"fused_tracked_admm": fused_tracked_admm, "dict_correlation": dict_correlation,
-                                "soft_threshold": fused_soft_threshold, "fwht": fwht_kernel})
+                                "soft_threshold": fused_soft_threshold, "fwht": fwht_kernel}, cpu_21)
+
+    # ---- 22. the eleventh slice: the worked examples -------------------------------------
+    examples = _examples(root, dev, card, cpu_22)
+    cpu_21[0].join(timeout=60)  # it has put its last result
+    if cpu_21[0].is_alive():
+        cpu_21[0].terminate()
+    for k in kernels[:3]:
+        k["launches_by_path"]["examples [22]"] = examples[k["name"]]
+        k["launches"] += examples[k["name"]]
+    tail["paths"]["fwht"]["examples [22]"] = examples["fwht"]
 
     kernels.append({
         "name": "fwht",

@@ -11,8 +11,12 @@ Usage:
   python -m jstsp19_torch run error_vs_nrf --n-mc 256 --checkpoint-dir ck --checkpoint-backend orbax
   python -m jstsp19_torch run error_vs_nrf --n-mc 256 --no-plot --distributed 2 [--dist-timeout 900]
   python -m jstsp19_torch panel [--batch] [--set field=value ...] [--n-mc 16] [--snr-db 0] [--out hist.png]
+  python -m jstsp19_torch demo                       # list the worked examples
+  python -m jstsp19_torch demo sparse_recovery [--cpu]
+  python -m jstsp19_torch demo large_array_sharded [--cpu] [--ranks 2]
 
-Without ``--cpu`` a run needs a CUDA device and exits 1 when there is none.
+Without ``--cpu`` a run or a demo needs a CUDA device and exits 1 when there
+is none.
 
 ``run --distributed N`` starts N ranks of this same command on this host
 (``parallel/launch.py``, one deadline for all, ``--dist-timeout``): each rank
@@ -24,8 +28,15 @@ one; with ``--cpu``, gloo on the CPU (``parallel/distributed.py``).  A
 recipe that does not go through ``run_point`` (the specialized figures) runs
 whole on every rank, as in the JAX package.  The JAX
 CLI's ``--devices-per-process`` has no counterpart: one rank drives one
-device.  The JAX CLI's ``demo`` runs ``examples/``, whose solvers are not
-ported yet: here it exits 1 (ROADMAP.md Queue 1, item 7).
+device.
+
+``demo`` lists the worked examples (``jstsp19_torch/examples/``, one module
+for each of the JAX package's ``examples/*.py`` scripts) with their first
+docstring lines, and ``demo <name>`` runs one, printing the script's lines.
+The JAX CLI's ``demo`` runs on the CPU unless given ``--tpu``; here, as for
+every entry point of the port, the card is the default and ``--cpu`` asks
+for the CPU.  ``--ranks N`` shares ``large_array_sharded``'s realizations
+over N ranks on this host.
 """
 from __future__ import annotations
 
@@ -68,8 +79,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="jstsp19_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     sub.add_parser("list", help="list experiment recipes")
-    demop = sub.add_parser("demo", help="the JAX CLI's worked demos (examples/): not ported yet")
+    demop = sub.add_parser("demo", help="list the worked examples, or run one (on the card unless --cpu)")
     demop.add_argument("name", nargs="?", default=None)
+    demop.add_argument("--cpu", action="store_true", help="run on the CPU (the kernels' plain versions)")
+    demop.add_argument("--ranks", type=int, default=None, help="large_array_sharded: share it over N ranks")
     panelp = sub.add_parser(
         "panel",
         help="parameter panel: edit a sweep point's fields, run a Monte-Carlo batch and print the NMSE",
@@ -119,9 +132,7 @@ def main(argv=None) -> int:
             print(f"{name:28s} {doc}")
         return 0
     if args.cmd == "demo":
-        print("demo runs the examples/ scripts, whose solvers are not ported yet (ROADMAP.md Queue 1, item 7)",
-              file=sys.stderr)
-        return 1
+        return _demo(args)
     if args.cmd == "panel":
         return _panel(args)
 
@@ -159,6 +170,29 @@ def main(argv=None) -> int:
         print(f"[rank {dist.get_rank()}] backend {dist.get_backend()}, device {device}; launches {counts}", flush=True)
         distributed.finish(rc)
     return rc
+
+
+def _demo(args) -> int:
+    """``demo``: list the examples, or run one's ``main``."""
+    import importlib
+
+    from jstsp19_torch.examples import NAMES
+
+    if args.name is None:
+        print("worked demos (run: python -m jstsp19_torch demo <name> [--cpu]):")
+        for name in NAMES:
+            doc = importlib.import_module(f"jstsp19_torch.examples.{name}").__doc__
+            print(f"  {name:26s} {doc.strip().splitlines()[0].rstrip('.')}")
+        return 0
+    if args.name not in NAMES:
+        print(f"unknown demo {args.name!r}; run `demo` to list", file=sys.stderr)
+        return 1
+    if args.ranks and args.name != "large_array_sharded":
+        print("--ranks applies to large_array_sharded only", file=sys.stderr)
+        return 1
+    # the example's main takes the device: the card, or without one exit 1 unless --cpu
+    argv = (["--cpu"] if args.cpu else []) + (["--ranks", str(args.ranks)] if args.ranks else [])
+    return importlib.import_module(f"jstsp19_torch.examples.{args.name}").main(argv)
 
 
 def _run(args, names, device) -> int:

@@ -65,13 +65,16 @@ def proposed_hbf(
     Lr_e: int,
     Lr: int,
     W: torch.Tensor,
+    Omega: torch.Tensor = None,
 ) -> ProposedObservation:
     """Proposed random-spatial-sampling HBF observation (``proposed_hbf.m``);
-    the mask batch follows the leading dimensions of the received frame."""
+    the mask batch follows the leading dimensions of the received frame.
+    ``Omega``: a mask drawn elsewhere, in place of drawing one from ``gen``."""
     R = received_frame(H, Psi, N)
     W_e = W[..., :, :Lr_e]
     Y_full = W_e.mH @ R
-    Omega = sample_omega(gen, Lr_e, Lr, R.shape[-1], batch=tuple(R.shape[:-2]))
+    if Omega is None:
+        Omega = sample_omega(gen, Lr_e, Lr, R.shape[-1], batch=tuple(R.shape[:-2]))
     return ProposedObservation(Y=Omega * Y_full, Omega=Omega, W_e=W_e, Y_full=Y_full)
 
 

@@ -146,7 +146,7 @@ def _per_realization(A: torch.Tensor, batch: int) -> torch.Tensor:
     return A.expand(batch, *A.shape[-2:]).contiguous() if A.dim() == 2 else A
 
 
-def _draws(gens, pc: PointConfig, noise_var, batch: int, H_ext=None, observe=True, rows=None):
+def point_draws(gens, pc: PointConfig, noise_var, batch: int, H_ext=None, observe=True, rows=None):
     """``(ch, Psi, N, W, obs)``: the system realization and, with
     ``observe``, the proposed receiver's observation (its mask drawn), for
     ``batch`` realizations.  ``rows`` (a slice) then cuts every batched
@@ -169,9 +169,9 @@ def _proposed_frontend(gens, pc: PointConfig, noise_var, batch: int, H_ext=None,
     """System realization → random-spatial-sampling observation →
     dictionaries → hyper-parameters (``plot_errorVSsnr.m:125-130``).
     ``draws``: an already drawn ``(ch, Psi, N, W, obs)``; ``rows`` as in
-    :func:`_draws`."""
+    :func:`point_draws`."""
     use_full_fp32()
-    ch, Psi, _, _, obs = draws or _draws(gens, pc, noise_var, batch, H_ext, rows=rows)
+    ch, Psi, _, _, obs = draws or point_draws(gens, pc, noise_var, batch, H_ext, rows=rows)
     A_p, B_p = _dictionaries(ch, obs.W_e, Psi)
     A_p = _per_realization(A_p, ch.H.shape[0])
     tau_Y, tau_S, rho = admm_hyperparams(obs.Y, ch.Zbar)
@@ -197,13 +197,14 @@ def conventional_problem(gens, pc: PointConfig, noise_var, batch: int) -> Dict[s
     """The conventional branch's inputs for ``batch`` realizations: Y_c, A_c,
     B_c and the true beamspace channel Zbar (the keys of
     ``interop.CONVENTIONAL_KEYS``)."""
-    ch, Psi, N, W, _ = _draws(gens, pc, noise_var, batch, observe=False)
+    ch, Psi, N, W, _ = point_draws(gens, pc, noise_var, batch, observe=False)
     Y_c, A_c, B_c = _conventional(pc, ch, Psi, N, W)
     return dict(Y_c=Y_c, A_c=A_c, B_c=B_c, Zbar=ch.Zbar)
 
 
 def realization_errors(
-    gens, pc: PointConfig, noise_var, batch: int, H_ext=None, *, rows=None, clamp=True, with_zbar=False
+    gens, pc: PointConfig, noise_var, batch: int, H_ext=None, *, rows=None, clamp=True, with_zbar=False,
+    draws=None,
 ) -> Dict[str, torch.Tensor]:
     """Evaluate the configured estimators on ``batch`` channel realizations.
 
@@ -212,7 +213,9 @@ def realization_errors(
     ``H_ext``: (batch, L, Nr, Nt) external delay taps (NYU-Wireless
     ingestion) in place of the synthetic channel.  ``rows``: a slice of the
     batch; only those realizations are solved, on the whole batch's draws
-    (:func:`_draws`), and the outputs have their length.
+    (:func:`point_draws`), and the outputs have their length.  ``draws``: the
+    ``(ch, Psi, N, W, obs)`` of :func:`point_draws`, made elsewhere (another
+    package's draws carried over), in place of drawing from ``gens``.
     """
     _check_methods(pc)
     if pc.svt_method == "fused":
@@ -223,7 +226,8 @@ def realization_errors(
     metric = clamped_nmse if clamp else nmse
     out: Dict[str, torch.Tensor] = {}
     proposed_branch = bool({"proposed", "proposed_angles", "svt", "tssr"} & set(pc.methods))
-    draws = _draws(gens, pc, noise_var, batch, H_ext, observe=proposed_branch, rows=rows)
+    if draws is None:
+        draws = point_draws(gens, pc, noise_var, batch, H_ext, observe=proposed_branch, rows=rows)
     ch, Psi, N, W, _ = draws
     batch = ch.H.shape[0]
 

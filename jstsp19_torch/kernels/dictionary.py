@@ -58,6 +58,17 @@ def smem_bytes(N: int, Gr: int, rpb: int, tk: int, mt: int) -> int:
     return 8 * rpb * (stages + (N * Gr + 1) // 2 * 2 + N * 2 * tk)
 
 
+def _tk(Kd: int) -> int:
+    return min(32, _pow2(-(-Kd // 2)))
+
+
+def fits(N: int, M: int, Gr: int, Kd: int) -> bool:
+    """Whether :func:`plan` has a layout for these shapes: one realization a
+    block with 4-column tiles (its smallest) fits the shared memory, which
+    holds A (N, Gr) whole.  Pure Python, from the same layout."""
+    return smem_bytes(N, Gr, 1, _tk(Kd), 4) <= SMEM_LIMIT_BYTES
+
+
 @functools.lru_cache(maxsize=None)
 def plan(N: int, M: int, Gr: int, Kd: int) -> DictPlan:
     """The layout for K (·, N, M), A (·, N, Gr), B (·, Kd, M).
@@ -70,7 +81,7 @@ def plan(N: int, M: int, Gr: int, Kd: int) -> DictPlan:
     (256, 32, 140) on an H100).  Where that does not fit the shared memory, the
     plan halves the realizations a block, then the tile; raises ValueError
     where even one realization with 4-column tiles does not fit."""
-    tk = min(32, _pow2(-(-Kd // 2)))
+    tk = _tk(Kd)
     per = min(THREADS, max(32, _pow2(tk * -(-max(N, Gr) // 2))))
     rpb = THREADS // per
     mt = min(TILE_M, max(4, -(-M // 4) * 4))

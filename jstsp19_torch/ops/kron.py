@@ -18,8 +18,13 @@ B are (N, Gr) and (K, M), or carry a leading batch dimension, one pair per
 realization, so every transpose is ``.mT``/``.mH`` (JAX's ``.T`` on its 2-D
 matrices; ``.T`` here would also reverse the batch axis).  ``rmv`` goes
 through the dictionary-correlation kernel's wrapper
-(``kernels/dictionary.py``: the CUDA kernel on CUDA tensors); the other
-products stay ``torch.matmul``, as the JAX package leaves them to XLA.
+(``kernels/dictionary.py``: the CUDA kernel on CUDA tensors) where the three
+operands are complex64 and the kernel's layout holds A (``fits``); any other
+operator (a real one, or an A too large for a block's shared memory) takes
+JAX's own form, ``Aᴴ·Y·Bᴴ`` by ``torch.matmul``.  The route is decided from
+dtypes and shapes before any launch; ``KronDictOp.kernel_rmvs`` and
+``KronDictOp.matmul_rmvs`` count the calls of each.  The other products stay
+``torch.matmul``, as the JAX package leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from typing import Tuple
 
 import torch
 
-from jstsp19_torch.kernels.dictionary import dict_correlation
+from jstsp19_torch.kernels.dictionary import dict_correlation, fits
 from jstsp19_torch.ops.base import LinOp
 
 
@@ -50,8 +55,18 @@ class KronDictOp(LinOp):
     def mv(self, S):
         return self.A @ S @ self.B
 
+    kernel_rmvs = 0  # calls of rmv that took the kernel's route
+    matmul_rmvs = 0  # and that took torch.matmul's
+
     def rmv(self, Y):
-        return dict_correlation(self.A, Y, self.B)
+        A, B = self.A, self.B
+        if all(t.dtype is torch.complex64 for t in (A, Y, B)) and fits(Y.shape[-2], Y.shape[-1], A.shape[-1],
+                                                                       B.shape[-2]):
+            KronDictOp.kernel_rmvs += 1
+            return dict_correlation(A, Y, B)
+        KronDictOp.matmul_rmvs += 1
+        dt = torch.promote_types(torch.promote_types(A.dtype, Y.dtype), B.dtype)
+        return A.to(dt).mH @ Y.to(dt) @ B.to(dt).mH
 
     def sq_mv(self, S):
         return (self.A.abs() ** 2) @ S @ (self.B.abs() ** 2)

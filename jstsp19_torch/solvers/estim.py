@@ -1503,7 +1503,7 @@ class NLLikelihood:
 
     def _grid(self, phat, pvar):
         umax = math.sqrt(2.0 * math.log(self.n_z / 2.0))
-        u = torch.linspace(-umax, umax, self.n_z, dtype=torch.float32, device=phat.device)
+        u = torch.linspace(-umax, umax, self.n_z, dtype=phat.real.dtype, device=phat.device)
         z = phat[..., None] + torch.sqrt(_t(pvar, phat))[..., None] * u
         logpyu = -((self.y[..., None] - self.out_fn(z)) ** 2) / (2.0 * _node(self.wvar))
         return u, logpyu

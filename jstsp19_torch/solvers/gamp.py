@@ -43,6 +43,21 @@ def _state_dtype(x0, yref) -> torch.dtype:
     return torch.float32
 
 
+def _observation(like):
+    """The likelihood's observed data, which carries the batch, the device
+    and the dtype: ``y``, or a quantizer's ``lo``, found through the
+    wrappers (``base``, ``probit``, a concatenation's first block); None
+    for a likelihood with no data (``L1Likelihood``)."""
+    for name in ("y", "lo"):
+        if isinstance(getattr(like, name, None), torch.Tensor):
+            return getattr(like, name)
+    for name in ("base", "probit"):
+        if getattr(like, name, None) is not None:
+            return _observation(getattr(like, name))
+    likes = getattr(like, "likes", None)
+    return _observation(likes[0]) if likes else None
+
+
 def _full(v, shape, dtype, device) -> torch.Tensor:
     """A number or a tensor (e.g. (B, 1)) broadcast to ``shape`` as a new
     tensor."""
@@ -64,14 +79,15 @@ def _size(shape) -> int:
 def gamp(prior, likelihood, op, nit: int = 50, step: float = 0.9, var_floor: float = 1e-12,
          dtype=None, x_init=None, adaptive: bool = False) -> GampResult:
     """Sum-product GAMP for ``y ~ p(y | op.mv(x))``, batched over the
-    leading dimensions of ``likelihood.y``.
+    leading dimensions of the likelihood's observation (``y``, found through
+    a wrapper such as ``RobustProbitLikelihood``'s ``probit``).
 
     Constant step damping on (xhat, shat), or with ``adaptive`` the step
     acceptance of ``gampEst.m`` in scan form: a candidate is accepted only
     if the output residual does not grow; a rejection reverts that
     realization's state and halves its step, an acceptance grows it.
     """
-    y = likelihood.y
+    y = _observation(likelihood)
     batch, dev = tuple(y.shape[:-1]), y.device
     x0, v0 = prior.init_moments()
     xdtype = dtype if dtype is not None else _state_dtype(x0, y)

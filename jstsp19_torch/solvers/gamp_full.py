@@ -34,7 +34,7 @@ import torch
 
 from jstsp19_torch.ops.structured import UnifVarOp, demean_rc
 from jstsp19_torch.solvers.estim import ConcatLikelihood, ConcatPrior, DiracLikelihood, NullPrior
-from jstsp19_torch.solvers.gamp import _full, _state_dtype
+from jstsp19_torch.solvers.gamp import _full, _observation, _state_dtype
 
 _EPS = float(torch.finfo(torch.float32).eps)
 
@@ -153,21 +153,6 @@ class GampEstFin(NamedTuple):
     nit: torch.Tensor
 
 
-def _observation(like):
-    """The likelihood's observed data, which carries the batch, the device
-    and the dtype: ``y``, or a quantizer's ``lo``, found through the
-    wrappers (``base``, ``probit``, a concatenation's first block); None
-    for a likelihood with no data (``L1Likelihood``)."""
-    for name in ("y", "lo"):
-        if isinstance(getattr(like, name, None), torch.Tensor):
-            return getattr(like, name)
-    for name in ("base", "probit"):
-        if getattr(like, name, None) is not None:
-            return _observation(getattr(like, name))
-    likes = getattr(like, "likes", None)
-    return _observation(likes[0]) if likes else None
-
-
 def _batch_device(likelihood, x_init):
     """(batch, device) of a solve: the observation's leading axes, or
     x_init's where the likelihood holds no data."""
@@ -213,23 +198,23 @@ def _retuned(like, base):
     return base
 
 
-def _init_state(prior, likelihood, op, opts, x_init, xvar_init, cplx, batch, dev) -> GampState:
+def _init_state(prior, likelihood, op, opts, x_init, xvar_init, cplx, batch, dev, rdt=torch.float32) -> GampState:
     (n,), (m,) = op.in_shape, op.out_shape
     x0, v0 = prior.init_moments()
-    xdtype = torch.complex64 if cplx else torch.float32
+    xdtype = _complex_of(rdt) if cplx else rdt
     xhat = _full(x0 if x_init is None else x_init, batch + (n,), xdtype, dev)
-    xvar = _full(v0 if xvar_init is None else xvar_init, batch + (n,), torch.float32, dev)
+    xvar = _full(v0 if xvar_init is None else xvar_init, batch + (n,), rdt, dev)
 
-    def nan(size, dtype=torch.float32):
+    def nan(size, dtype=rdt):
         return torch.full(batch + (size,), torch.nan, dtype=dtype, device=dev)
 
-    def scalar(v, dtype=torch.float32):
+    def scalar(v, dtype=rdt):
         return torch.full(batch + (1,), v, dtype=dtype, device=dev)
 
     zeros_m = torch.zeros(batch + (m,), dtype=xdtype, device=dev)
     # +inf fill: an unpopulated slot never wins the min, so the acceptance
     # test val >= min(window) is live as soon as one value is recorded
-    window = torch.full(batch + (max(opts.step_window, 0) + 1,), torch.inf, dtype=torch.float32, device=dev)
+    window = torch.full(batch + (max(opts.step_window, 0) + 1,), torch.inf, dtype=rdt, device=dev)
     return GampState(
         it=scalar(0, torch.int32), stopped=scalar(False, torch.bool),
         xhat=xhat, xvar=xvar, shat=zeros_m, svar=nan(m), rhat=nan(n, xdtype), rvar=nan(n),
@@ -246,40 +231,44 @@ def _init_state(prior, likelihood, op, opts, x_init, xvar_init, cplx, batch, dev
     )
 
 
+def _complex_of(rdt):
+    return torch.complex128 if rdt == torch.float64 else torch.complex64
+
+
 def _nanfix(anchor, fresh):
     """``if any(isnan(anchor)), anchor = fresh``, elementwise: the
     reference's lazy first-iteration initialization."""
     return torch.where(torch.isnan(anchor), fresh, anchor)
 
 
-def _sum(v: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis as float32, one per realization, (..., 1)."""
-    return v.sum(-1, keepdim=True).to(torch.float32)
+def _sum(v: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Sum over the last axis as ``dtype``, one per realization, (..., 1)."""
+    return v.sum(-1, keepdim=True).to(dtype)
 
 
 def _gamp_iteration(prior, op, st: GampState, opts: GampOptions, column_norms):
     """One pass of the loop body: the new (frozen where ``stopped``) state and
     this iteration's history entries."""
-    adapt, max_sum = opts.adapt_step, opts.max_sum
+    adapt, max_sum, rdt = opts.adapt_step, opts.max_sum, st.val.dtype
 
     def val_out_fn(like, axhat, pvar, phat):
         if not adapt or not hasattr(like, "logscale" if opts.adapt_step_bethe else "loglike"):
             # a likelihood without a cost leaves the valIn-only criterion
             return torch.zeros_like(st.val)
         if opts.adapt_step_bethe:
-            return _sum(like.logscale(axhat, pvar, phat))
+            return _sum(like.logscale(axhat, pvar, phat), rdt)
         if max_sum:
             # the max-sum utility is the point log-likelihood at Axhat
-            return _sum(like.loglike(axhat, torch.zeros_like(pvar)))
-        return _sum(like.loglike(axhat, pvar))
+            return _sum(like.loglike(axhat, torch.zeros_like(pvar)), rdt)
+        return _sum(like.loglike(axhat, pvar), rdt)
 
     def val_in_fn(rhat, rvar, xhat, xvar):
         if not adapt:
             return torch.zeros_like(st.val)
         if max_sum:
-            return _sum(prior.val_map(xhat).real) if hasattr(prior, "val_map") else torch.zeros_like(st.val)
+            return _sum(prior.val_map(xhat).real, rdt) if hasattr(prior, "val_map") else torch.zeros_like(st.val)
         if hasattr(prior, "val_neg_kl"):
-            return _sum(prior.val_neg_kl(rhat, rvar, xhat, xvar).real)
+            return _sum(prior.val_neg_kl(rhat, rvar, xhat, xvar).real, rdt)
         return torch.zeros_like(st.val)
 
     like = st.likelihood
@@ -467,7 +456,7 @@ def _xvar0_auto(prior, likelihood, op, xhat0, opts, iters: int = 20):
     ``xhat0`` through the inverted estimators, one per realization."""
     eps = 1e-20
     ax = op.mv(xhat0)
-    xvar0 = torch.clamp((xhat0.abs() ** 2).mean(-1, keepdim=True), min=1e-12).to(torch.float32)
+    xvar0 = torch.clamp((xhat0.abs() ** 2).mean(-1, keepdim=True), min=1e-12).to(xhat0.real.dtype)
     xvar = xvar0.expand(xhat0.shape)
     for _ in range(iters):
         pvar = torch.clamp(op.sq_mv(xvar), min=opts.pvar_min)
@@ -490,7 +479,9 @@ def gamp_est(prior, likelihood, op, opts: Optional[GampOptions] = None, state_in
     parameters, ``x_init`` and
     ``xvar_init`` broadcast against (B, n).  ``state_in`` (a previous
     call's ``state``) warm-starts exactly: ``nit=a`` then ``nit=b`` from
-    its state equals one ``nit=a+b`` run.  ``hist`` is empty unless
+    its state equals one ``nit=a+b`` run.  The state is float32 (complex64)
+    as JAX's, float64 (complex128) where the observation, or else
+    ``x_init``, is.  ``hist`` is empty unless
     ``save_hist``; then it holds one (nit, B, …) tensor per key (val, step,
     passed, resid, stopped and the exported iterates), decimated by
     ``hist_intvl``.  With ``remove_mean``, ``estfin`` is in the original
@@ -501,7 +492,9 @@ def gamp_est(prior, likelihood, op, opts: Optional[GampOptions] = None, state_in
     cplx = _state_dtype(prior.init_moments()[0], _observation(likelihood)) == torch.complex64 or (
         isinstance(x_init, torch.Tensor) and x_init.is_complex())
     batch, dev = _batch_device(likelihood, x_init)
-    xdtype = torch.complex64 if cplx else torch.float32
+    wide = [v for v in (_observation(likelihood), x_init) if isinstance(v, torch.Tensor)]
+    rdt = torch.float64 if wide and wide[0].dtype in (torch.float64, torch.complex128) else torch.float32
+    xdtype = _complex_of(rdt) if cplx else rdt
     if opts.xvar0auto and state_in is None and x_init is not None and xvar_init is None:
         x0 = _full(x_init, batch + tuple(op.in_shape), xdtype, dev)
         xvar_init = _xvar0_auto(prior, likelihood, op, x0, opts)
@@ -512,15 +505,15 @@ def gamp_est(prior, likelihood, op, opts: Optional[GampOptions] = None, state_in
         # the two augmented entries start at the exact expansion of the
         # (user's or the prior's) initial state (gampEst.m:271-272), not at
         # the NullPrior's placeholder moments
-        state = _init_state(prior_a, like_a, op_a, opts, None, None, cplx, batch, dev)
+        state = _init_state(prior_a, like_a, op_a, opts, None, None, cplx, batch, dev, rdt)
         dm = op_a.base if opts.uniform_variance else op_a
         n = op.in_shape[0]
         x_base = state.xhat[..., :n] if x_init is None else _full(x_init, batch + (n,), xdtype, dev)
-        v_base = state.xvar[..., :n] if xvar_init is None else _full(xvar_init, batch + (n,), torch.float32, dev)
+        v_base = state.xvar[..., :n] if xvar_init is None else _full(xvar_init, batch + (n,), rdt, dev)
         x_exp = dm.expand_xhat(x_base).to(xdtype)
         state = state._replace(xhat=x_exp, xhat_opt=x_exp, xvar=dm.expand_xvar(v_base))
     else:
-        state = _init_state(prior_a, like_a, op_a, opts, x_init, xvar_init, cplx, batch, dev)
+        state = _init_state(prior_a, like_a, op_a, opts, x_init, xvar_init, cplx, batch, dev, rdt)
     if opts.bb_step:
         column_norms = torch.sqrt(op_a.sq_rmv(torch.ones(batch + tuple(op_a.out_shape), device=dev)))
     else:

@@ -772,3 +772,25 @@ def test_bilinear_solvers_on_the_card_match_the_cpu_in_float64_and_launch_no_ker
             got, ref = got[0], ref[0]
         assert float((got.cpu() - ref).abs().max()) <= 1e-9 * float(ref.abs().max())
     assert [k.launches for k in kernels] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+def test_kron_rmv_matmul_route_on_the_card_matches_the_cpu(cuda, dtype):
+    """s_amp's real 128×256 operator and sparse_recovery's complex one take
+    the matmul route on the card too (the kernel would raise: a real operand,
+    or an A its shared memory cannot hold), launch no kernel, and equal the
+    CPU; a VAMP-shape complex operator takes the kernel."""
+    from jstsp19_torch.ops import KronDictOp
+
+    g = torch.Generator().manual_seed(5)
+    A, Y = torch.randn(128, 256, generator=g, dtype=dtype), torch.randn(4, 128, 1, generator=g, dtype=dtype)
+    B = torch.eye(1, dtype=dtype)
+    launches, before = dict_correlation.launches, (KronDictOp.kernel_rmvs, KronDictOp.matmul_rmvs)
+    got = KronDictOp(A.to(cuda), B.to(cuda)).rmv(Y.to(cuda))
+    assert dict_correlation.launches == launches
+    assert (KronDictOp.kernel_rmvs, KronDictOp.matmul_rmvs) == (before[0], before[1] + 1)
+    want = KronDictOp(A, B).rmv(Y)
+    assert (got.cpu() - want).abs().max() <= 1e-5 * want.abs().max()
+    op = KronDictOp(_crandn(cuda, 4, 8, 32), _crandn(cuda, 4, 16, 16, seed=1))
+    op.rmv(_crandn(cuda, 4, 8, 16, seed=2))
+    assert dict_correlation.launches == launches + 1

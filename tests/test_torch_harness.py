@@ -155,10 +155,11 @@ def test_unported_parts_raise_and_name_their_roadmap_item(capsys):
         assert set(out) == {m} and out[m].shape == (1,)
     with pytest.raises(ValueError, match="unknown method"):
         pipeline.realization_errors(gens, pipeline.PointConfig(methods=("nope",)), 1.0, 1)
-    # demo runs examples/, whose solvers are item 7's: it exits 1 naming it
+    # demo lists the 21 worked examples (ROADMAP.md Queue 1, item 7f, done)
     capsys.readouterr()
-    assert main(["demo"]) == 1
-    assert "ROADMAP.md Queue 1, item 7" in capsys.readouterr().err
+    assert main(["demo"]) == 0
+    listed = capsys.readouterr().out.splitlines()[1:]
+    assert len(listed) == 21 and all(line.startswith("  ") for line in listed)
     # the JAX registry, time_comparisons included
     assert set(EXPERIMENTS) == set(jexp.EXPERIMENTS)
     assert len(EXPERIMENTS) == 19

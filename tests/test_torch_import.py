@@ -31,7 +31,8 @@ def test_import_leaves_jax_out():
     assert "BAD []" in proc.stdout
     # the GAMP slice's modules are among those imported
     for mod in ("ops.masked", "ops.structured", "ops.fourier", "kernels.wht", "solvers.gamp",
-                "solvers.gamp_full", "harness.hadamard_cs", "interop"):
+                "solvers.gamp_full", "harness.hadamard_cs", "interop", "examples.sparse_recovery",
+                "examples.large_array_sharded"):
         assert f"'jstsp19_torch.{mod}'" in proc.stdout, mod
 
 
