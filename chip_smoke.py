@@ -221,6 +221,24 @@ Phases (any failure ends the run with a non-zero exit code and no result):
     ``large_array_sharded`` over 2 ranks sharing the card (gloo) equals one
     process to rtol 1e-6; (e) each example's ``solve`` time on the card, best
     of 3, and the phase's wall time.
+23. the twelfth slice, the host library and the kernel routes by dtype and
+    shape: (a) ``fwht_kernel`` at (32, 65536) float32, sequency and natural
+    order, against ``jstsp19_torch/utils/native.py::native_fwht`` (the g++
+    host library, built on this machine) of the same rows in float64,
+    max|Δ| ≤ 1e-5·max|ref|; (b) on the card, a float64 ``gamp_est`` (mean
+    removal off) and ``amp_est`` on partial-Hadamard problems (B=8,
+    n=4096), a complex128 ``sparse_admm`` ([19b]'s problems), a complex128
+    ``proposed_admm(use_kernels=True)`` (an errorVSnrf Mr=16 point, B=16)
+    and the float64 FWHT of one row of 2^25: no kernel launched (the four
+    kernels' counts, and every route counter on the plain route), each
+    within 1e-8 of the same solve on the CPU (made in the process of [21]'s
+    and [22]'s CPU halves, first) per realization; (a) and (b) run in a
+    process of their own beside [21] and [22], which leave the card and the
+    host room, and print their lines after [22]; (c) the soft threshold
+    at one τ against ``F.softshrink`` on the real view, (256, 32, 16):
+    equal, both timed (device time under ``torch.profiler`` from a trace
+    that recorded one kernel a call, and time a call of 200, in turns), the
+    softshrink's better time a call the kernels line's ``library_ms``.
 
 Then one JSON line with each kernel's launches, error, times and bound (the
 larger of its bytes over 3.35 TB/s and its float32 operations over
@@ -251,6 +269,11 @@ NV_5DB = 10 ** (-0.5)
 NOISE_VAR = 1.0  # 0 dB
 TIMED_CALLS = 200
 BILINEAR_CPU_REALIZATIONS = 32  # [21]'s float64 card-against-CPU check, realizations 0-31
+ROUTES_BATCH, ROUTES_N = 8, 4096  # [23b]'s float64 partial-Hadamard problems
+ROUTES_ADMM_BATCH = 16  # [23b]'s complex128 proposed_admm
+ROUTES_FWHT_N = 1 << 25  # [23b]'s float64 row, over the FWHT kernel's 2^24
+ROUTES_RTOL = 1e-8  # [23b]: float64 card against CPU, max|d|/max|ref| per realization
+ROUTES_ORACLE_RTOL = 1e-5  # [23a]: the float32 kernel against the float64 oracle, max|d|/max|ref|
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth, published
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
 FWHT_NS = (2, 64, 4096, *(1 << k for k in range(14, 21)))  # every boundary of plan_fwht
@@ -1609,28 +1632,29 @@ def _wide_examples():
                  if getattr(__import__(f"jstsp19_torch.examples.{n}", fromlist=["solve"]), "FLOAT64", False))
 
 
-def _cpu_halves(q21, q22, threads: int) -> None:
-    """The CPU's halves of phases 21's and 22's card-against-CPU checks, one
-    after the other in one process."""
+def _cpu_halves(q21, q22, q23, threads: int) -> None:
+    """The CPU's halves of phases 23's, 21's and 22's card-against-CPU
+    checks, one after the other in one process."""
     from jstsp19_torch.examples import NAMES
 
+    _routes_cpu_half(q23, threads)
     _bilinear_cpu_half(BILINEAR_CPU_REALIZATIONS, q21, threads)
     _examples_half(NAMES, "cpu", q22, _wide_examples(), threads)
 
 
 def _start_cpu_halves(threads: int = 3):
     """Start :func:`_cpu_halves` in a process of its own, so that the CPU's
-    work of phases 21 and 22 runs beside the card's phases before them and
-    neither phase waits for it (``threads`` intra-op threads leave the other
+    work of phases 21, 22 and 23 runs beside the card's phases before them
+    and no phase waits for it (``threads`` intra-op threads leave the other
     cores to the card's launch loop).  Returns ``(process, phase 21's queue),
-    (process, phase 22's queue)``."""
+    (process, phase 22's queue), (process, phase 23's queue)``."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
-    q21, q22 = ctx.Queue(), ctx.Queue()
-    proc = ctx.Process(target=_cpu_halves, args=(q21, q22, threads), daemon=True)
+    q21, q22, q23 = ctx.Queue(), ctx.Queue(), ctx.Queue()
+    proc = ctx.Process(target=_cpu_halves, args=(q21, q22, q23, threads), daemon=True)
     proc.start()
-    return (proc, q21), (proc, q22)
+    return (proc, q21), (proc, q22), (proc, q23)
 
 
 def _demo_process(args, timeout: float = 600):
@@ -1813,6 +1837,234 @@ def _examples(root, dev, card, cpu=None) -> dict:
     return launches_total
 
 
+def _route_problems():
+    """[23b]'s inputs, made on the CPU alike in either process: float64
+    partial-Hadamard problems (the slice's B=32, n=65536 cut to ROUTES_BATCH
+    rows of ROUTES_N), [19b]'s beamspace problems in complex128, an errorVSnrf
+    Mr=16 point's ADMM problem in complex128, and one float64 row of
+    ROUTES_FWHT_N, over the FWHT kernel's 2^24."""
+    from jstsp19_torch.core import prng
+    from jstsp19_torch.harness import amp_sparse as aps
+    from jstsp19_torch.harness import hadamard_cs as hcs
+    from jstsp19_torch.harness.pipeline import PointConfig, proposed_problem
+
+    cs = hcs.hadamard_cs_problem(seed=23, batch=ROUTES_BATCH, n=ROUTES_N)
+    cs = dict(cs, y=cs["y"].astype(np.float64), wvar=cs["wvar"].astype(np.float64))
+    beam = {k: v.astype(np.complex128) for k, v in aps.beamspace_problem(batch=B_MAIN).items()}
+    prob = proposed_problem(prng.realization_generators(23, 3, "cpu"), PointConfig(Mr=16, T=5, methods=("proposed",)),
+                            NV_5DB, ROUTES_ADMM_BATCH)
+    wide = {torch.float32: torch.float64, torch.complex64: torch.complex128}
+    admm = [prob[k].to(wide[prob[k].dtype]).numpy() for k in ("subY", "Omega", "A", "B", "tau_Y", "tau_S", "rho")]
+    row = np.random.default_rng(23).standard_normal((1, ROUTES_FWHT_N))
+    return cs, beam, admm, row
+
+
+def _route_solves(problems, device) -> dict:
+    """[23b]'s solves on ``device``, each on the route its dtype takes:
+    ``gamp_est`` (mean removal off) and ``amp_est`` on ``SubsetOp(FWHTOp)``,
+    ``sparse_admm``, ``proposed_admm(use_kernels=True)`` and the FWHT of the
+    oversize row.  Returns each result on ``device``."""
+    from jstsp19_torch.harness import amp_sparse as aps
+    from jstsp19_torch.harness import hadamard_cs as hcs
+    from jstsp19_torch.ops.fourier import fwht
+    from jstsp19_torch.solvers.admm import proposed_admm
+    from jstsp19_torch.solvers.gamp import amp_est
+    from jstsp19_torch.solvers.gamp_full import gamp_est
+    from jstsp19_torch.solvers.sparse import sparse_admm
+
+    cs, beam, admm, row = problems
+    out = {"gamp_est float64": gamp_est(*hcs.hadamard_cs_torch(cs, device))[0].xhat}
+    y, op, prior, _ = aps.hadamard_amp_torch(cs, device)
+    out["amp_est float64"] = amp_est(y, op, prior, nit=aps.AMP_NIT)
+    d = aps.to_device(beam, device)
+    out["sparse_admm complex128"] = sparse_admm(d["H"], d["OH"], d["Dr"], d["Dt"], aps.ADMM_IMAX)[0]
+    a = [torch.from_numpy(v).to(device) for v in admm]
+    out["proposed_admm complex128"] = proposed_admm(*a[:4], IMAX_MAIN, *a[4:], use_kernels=True).S
+    out[f"fwht float64 n=2^{ROUTES_FWHT_N.bit_length() - 1}"] = fwht(torch.from_numpy(row).to(device))
+    return out
+
+
+def _routes_cpu_half(queue, threads: int) -> None:
+    """The CPU's half of phase 23: builds the host library (so that the
+    card's side finds it built) and runs [23b]'s solves on the CPU; puts
+    ``(results as numpy, seconds)`` on ``queue``."""
+    from jstsp19_torch.utils import native_available
+
+    torch.set_num_threads(threads)
+    t = time.perf_counter()
+    native_available()
+    out = {k: v.numpy() for k, v in _route_solves(_route_problems(), "cpu").items()}
+    queue.put((out, time.perf_counter() - t))
+
+
+def _routes_checks(dev, cpu_queue) -> float:
+    """Phase 23's checks: (a) the FWHT kernel against the float64 host
+    library, (b) the routes that float64 and complex128 take on the card,
+    against the CPU (the results of :func:`_routes_cpu_half`, read from
+    ``cpu_queue``), with no kernel launched.  Returns (a)'s max|Δ|."""
+    from jstsp19_torch.kernels import admm_fused, dictionary, softthresh, wht
+    from jstsp19_torch.ops import fourier
+    from jstsp19_torch.utils import native_available, native_fwht
+
+    t0 = time.perf_counter()
+    # (a) the float64 host oracle of the FWHT
+    if not native_available():
+        raise SystemExit("[23a] the host library (jstsp19_torch/utils/csrc, g++) did not build")
+    g = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randn(32, 65536, generator=g, device=dev)
+    x64 = x.double().cpu().numpy()
+    fwht_oracle_err = 0.0
+    for ordering in ("sequency", "natural"):
+        out_k = wht.fwht_kernel(x, ordering)
+        ref = native_fwht(x64, ordering)
+        err, scale = float(np.abs(out_k.double().cpu().numpy() - ref).max()), float(np.abs(ref).max())
+        fwht_oracle_err = max(fwht_oracle_err, err)
+        ok = err <= ROUTES_ORACLE_RTOL * scale
+        print(f"[23a] fwht_kernel {tuple(x.shape)} float32 {ordering} against native_fwht in float64: max|d|="
+              f"{err:.3e} <= {ROUTES_ORACLE_RTOL:g}*max|ref|={ROUTES_ORACLE_RTOL * scale:.3e}: {ok}")
+        if not ok:
+            raise SystemExit("[23a] the FWHT kernel disagrees with the float64 host library")
+
+    # (b) float64 and complex128 on the card: the plain routes, no kernel launched, against the CPU
+    counters = (admm_fused.fused_tracked_admm, dictionary.dict_correlation, softthresh.fused_soft_threshold,
+                wht.fwht_kernel)
+    routed = (fourier.fwht, fourier.ifwht, dictionary.dict_correlation_routed,
+              softthresh.fused_soft_threshold_routed)
+    problems = _route_problems()
+    for c in counters:
+        c.launches = 0
+    for r in routed:
+        r.kernel_calls = r.plain_calls = 0
+    t = time.perf_counter()
+    on_card = _route_solves(problems, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    launches = {c.__name__: c.launches for c in counters}
+    routes = {f"{r.__module__.rsplit('.', 1)[-1]}.{r.__name__}": (r.kernel_calls, r.plain_calls) for r in routed}
+    ok = not any(launches.values()) and all(k == 0 and n > 0 for k, n in routes.values())
+    print(f"[23b] the solves on the card ({card_s:.3f} s, host clock, first calls): kernel launches {launches}; "
+          f"routes (kernel, plain) {routes}; no kernel launched, every route plain: {ok}")
+    if not ok:
+        raise SystemExit("[23b] a float64 or complex128 solve launched a kernel")
+    t = time.perf_counter()
+    on_cpu, cpu_s = cpu_queue.get(timeout=600)
+    print(f"[23b] the CPU's half took {cpu_s:.1f} s; this side waited {time.perf_counter() - t:.1f} s for it "
+          "(its results included)")
+    for name, got in on_card.items():
+        ref = torch.from_numpy(on_cpu[name])
+        got = got.cpu()
+        d = (got - ref).abs().flatten(1).amax(1) / ref.abs().flatten(1).amax(1)
+        rel = float(d.max())
+        ok = got.dtype == ref.dtype and got.dtype in (torch.float64, torch.complex128) and rel <= ROUTES_RTOL
+        print(f"[23b] {name} {tuple(got.shape)}: card against CPU, max|d|/max|ref| per realization {rel:.2e} "
+              f"<= {ROUTES_RTOL:g}: {ok}")
+        if not ok:
+            raise SystemExit(f"[23b] {name}: the card and the CPU disagree")
+    print(f"[23a-b] {time.perf_counter() - t0:.1f} s (host clock)")
+    return fwht_oracle_err
+
+
+def _routes_card_half(cpu_queue, out_queue, threads: int = 2) -> None:
+    """Phase 23's checks (:func:`_routes_checks`) in a process of their own,
+    beside [21] and [22] on the card (launch streams that leave it room; the
+    launch counts are this process's own).  Puts ``(the printed lines, (a)'s
+    max|Δ|, None)`` on ``out_queue``, or the lines and the failure."""
+    import traceback
+
+    torch.set_num_threads(threads)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            err = _routes_checks(torch.device("cuda"), cpu_queue)
+        out_queue.put((buf.getvalue(), err, None))
+    except SystemExit as e:
+        out_queue.put((buf.getvalue(), None, str(e)))
+    except Exception:  # the boundary of this process: the main process reports it and fails
+        out_queue.put((buf.getvalue(), None, traceback.format_exc()))
+
+
+def _start_routes_card_half(cpu):
+    """Start :func:`_routes_card_half`; ``cpu``: the (process, queue) of
+    :func:`_start_cpu_halves` whose queue carries [23]'s CPU results.
+    Returns ``(process, its queue)``."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    proc = ctx.Process(target=_routes_card_half, args=(cpu[1], out), daemon=True)
+    proc.start()
+    return proc, out
+
+
+def _routes_result(half) -> float:
+    """[23]'s checks from the process of :func:`_start_routes_card_half`:
+    prints its lines and returns (a)'s max|Δ|, or fails as it did."""
+    import queue as queue_module
+
+    proc, out = half
+    t = time.perf_counter()
+    while True:
+        try:
+            text, err, failure = out.get(timeout=5)
+            break
+        except queue_module.Empty:
+            if not proc.is_alive():
+                raise SystemExit(f"[23] the process of the checks ended with code {proc.exitcode}")
+    proc.join(timeout=60)
+    print(text, end="")
+    print(f"[23] the checks ran beside [21] and [22]; the main process waited {time.perf_counter() - t:.1f} s for them")
+    if failure:
+        raise SystemExit(failure)
+    return err
+
+
+def _softshrink_times(dev, card, kernels) -> None:
+    """Phase 23c: the soft threshold at one τ against ``F.softshrink`` on the
+    real view, on the same v: equal, and both timed; sets the soft
+    threshold's ``library_ms`` (and the one-τ times) in ``kernels``."""
+    import torch.nn.functional as F
+
+    from jstsp19_torch.bench import device_ms
+    from jstsp19_torch.kernels import softthresh
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(23)
+    v = torch.randn(B_MAIN, 32, 16, generator=g, device=dev, dtype=torch.complex64) * 0.3
+    tau = 0.2
+
+    def library():
+        return torch.view_as_complex(F.softshrink(torch.view_as_real(v), tau))
+
+    def kernel():
+        return softthresh.fused_soft_threshold(v, tau)
+
+    def one_kernel_ms(fn, match):
+        """``device_ms`` of fn, which launches one kernel a call, from a trace
+        that recorded one a call (within 5%); at most three traces, else NaN."""
+        for _ in range(3):
+            ms, n = device_ms(fn, match=match)
+            if abs(n - 1) <= 0.05:
+                return ms, n
+        return float("nan"), n
+
+    same = torch.equal(kernel(), library())
+    (k_dev, k_n), (l_dev, l_n) = one_kernel_ms(kernel, "soft_threshold"), one_kernel_ms(library, "softshrink")
+    k_ms, l_ms = [], []
+    for _ in range(2):  # in turns: kernel, softshrink, kernel, softshrink
+        k_ms.append(_per_call_ms(kernel))
+        l_ms.append(_per_call_ms(library))
+    print(f"[23c] soft_threshold, one tau {tau}, v {tuple(v.shape)}: equal to softshrink: {same}; device a call "
+          f"kernel {k_dev * 1e3:.2f} us ({k_n:.2f} kernels), softshrink {l_dev * 1e3:.2f} us ({l_n:.2f}); per "
+          f"call, mean of {TIMED_CALLS}, in turns: kernel {k_ms[0]:.4f} and {k_ms[1]:.4f} ms, softshrink "
+          f"{l_ms[0]:.4f} and {l_ms[1]:.4f} ms (card: {card})")
+    if not same:
+        raise SystemExit("[23c] the soft threshold at one tau differs from softshrink")
+    entry = {k["name"]: k for k in kernels}
+    entry["soft_threshold"].update(library_ms=min(l_ms), library_device_ms=l_dev, ms_one_tau=min(k_ms),
+                                   device_ms_one_tau=k_dev)
+    print(f"[23c] {time.perf_counter() - t0:.1f} s (host clock)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the GPU", file=sys.stderr)
@@ -1847,8 +2099,8 @@ def main() -> int:
     for module in (admm_fused, dictionary, softthresh, wht):
         module._library()
     _print_build("[1]", "admm_fused", build_seconds)
-    # the CPU's halves of [21]'s and [22]'s card-against-CPU checks, in a process beside phases [2]-[20]
-    cpu_21, cpu_22 = _start_cpu_halves()
+    # the CPU's halves of [23]'s, [21]'s and [22]'s card-against-CPU checks, in a process beside phases [2]-[20]
+    cpu_21, cpu_22, cpu_23 = _start_cpu_halves()
 
     # ---- 2. kernel against its plain version, B=8, Imax=25 ---------------------
     pc = PointConfig(methods=("proposed", "proposed_angles"), svt_method="fused")
@@ -2110,7 +2362,7 @@ def main() -> int:
         "plain_ms": soft_plain_ms,
         "bound_ms": soft_bound[0],
         "bound_by": soft_bound[1],
-        "library_ms": None,  # softshrink takes one τ for all; the path passes one per matrix
+        "library_ms": None,  # [23c]: softshrink at one τ for all (the path passes one per matrix)
         "device_ms": soft_device[1],  # torch.profiler, per-matrix τ
     }]
 
@@ -2316,15 +2568,15 @@ def main() -> int:
         kernels[1]["launches"] += n
     tail["paths"]["fwht"].update(em_paths["fwht"])
 
+    # [23]'s checks in a process of their own, beside [21] and [22] (their CPU half ran in the CPU halves' process)
+    routes_23 = _start_routes_card_half(cpu_23)
+
     # ---- 21. the tenth slice: the bilinear solvers (no kernel on this path) -------------
     _bilinear(root, dev, card, {"fused_tracked_admm": fused_tracked_admm, "dict_correlation": dict_correlation,
                                 "soft_threshold": fused_soft_threshold, "fwht": fwht_kernel}, cpu_21)
 
     # ---- 22. the eleventh slice: the worked examples -------------------------------------
     examples = _examples(root, dev, card, cpu_22)
-    cpu_21[0].join(timeout=60)  # it has put its last result
-    if cpu_21[0].is_alive():
-        cpu_21[0].terminate()
     for k in kernels[:3]:
         k["launches_by_path"]["examples [22]"] = examples[k["name"]]
         k["launches"] += examples[k["name"]]
@@ -2346,6 +2598,13 @@ def main() -> int:
         "library_ms": fwht_library_ms,
         "device_ms": fwht_device[(hcs.BATCH, hcs.N, False)],  # torch.profiler, without the wrapper's host cost
     })
+
+    # ---- 23. the twelfth slice: the host library and the routes by dtype and shape ----------
+    kernels[3]["native_oracle_max_abs_err"] = _routes_result(routes_23)
+    _softshrink_times(dev, card, kernels)
+    cpu_21[0].join(timeout=60)  # it has put its last result
+    if cpu_21[0].is_alive():
+        cpu_21[0].terminate()
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

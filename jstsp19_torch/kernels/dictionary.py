@@ -13,14 +13,16 @@ shapes.  The plain version (:func:`dict_correlation_plain`) is the einsum of
 
 :func:`dict_correlation` takes the plain version for CPU tensors only; for
 CUDA tensors it launches the kernel or raises.  ``dict_correlation.launches``
-counts kernel launches.
+counts kernel launches.  The solvers call :func:`dict_correlation_routed`,
+which takes the kernel only for operands it takes (:func:`kernel_takes`:
+complex64 at shapes that fit) and the plain version for any other.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import NamedTuple
+from typing import Iterable, NamedTuple
 
 import torch
 
@@ -62,11 +64,21 @@ def _tk(Kd: int) -> int:
     return min(32, _pow2(-(-Kd // 2)))
 
 
+@functools.lru_cache(maxsize=None)
 def fits(N: int, M: int, Gr: int, Kd: int) -> bool:
     """Whether :func:`plan` has a layout for these shapes: one realization a
     block with 4-column tiles (its smallest) fits the shared memory, which
     holds A (N, Gr) whole.  Pure Python, from the same layout."""
     return smem_bytes(N, Gr, 1, _tk(Kd), 4) <= SMEM_LIMIT_BYTES
+
+
+def kernel_takes(dtypes: Iterable[torch.dtype], N: int, M: int, Gr: int, Kd: int) -> bool:
+    """Whether :func:`dict_correlation` takes operands of these dtypes (A's,
+    K's and B's) and shapes (K's matrices N×M, A's Gr columns, B's Kd rows):
+    all complex64, and :func:`fits`.  The callers' routes
+    (:func:`dict_correlation_routed`, ``ops/kron.py::KronDictOp.rmv``) are
+    decided by this, before any launch.  Pure Python."""
+    return all(d is _C64 for d in dtypes) and fits(N, M, Gr, Kd)
 
 
 @functools.lru_cache(maxsize=None)
@@ -193,3 +205,20 @@ def dict_correlation(A: torch.Tensor, K: torch.Tensor, B: torch.Tensor) -> torch
 
 
 dict_correlation.launches = 0
+
+
+def dict_correlation_routed(A: torch.Tensor, K: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``Aᴴ·K·Bᴴ`` by the route the operands allow, decided before any
+    launch: :func:`dict_correlation`'s kernel for CUDA operands it takes
+    (:func:`kernel_takes`), else :func:`dict_correlation_plain` on the
+    operands' device and at their dtype, as the JAX package's solvers
+    compute it.  ``dict_correlation_routed.kernel_calls`` and ``.plain_calls``
+    count the calls of each route."""
+    if K.is_cuda and kernel_takes((A.dtype, K.dtype, B.dtype), K.shape[-2], K.shape[-1], A.shape[-1], B.shape[-2]):
+        dict_correlation_routed.kernel_calls += 1
+        return dict_correlation(A, K, B)
+    dict_correlation_routed.plain_calls += 1
+    return dict_correlation_plain(A, K, B)
+
+
+dict_correlation_routed.kernel_calls = dict_correlation_routed.plain_calls = 0

@@ -9,7 +9,9 @@ thread; its source note says what bounds it.  The plain version
 
 :func:`fused_soft_threshold` takes the plain version for CPU tensors only;
 for CUDA tensors it launches the kernel or raises.
-``fused_soft_threshold.launches`` counts kernel launches.
+``fused_soft_threshold.launches`` counts kernel launches.  The solvers call
+:func:`fused_soft_threshold_routed`, which takes the kernel only for a v it
+takes (:func:`kernel_takes`: complex64) and the plain version for any other.
 """
 from __future__ import annotations
 
@@ -58,16 +60,23 @@ def _library() -> ctypes.CDLL:
 
 
 def _tau_per_matrix(tau, v: torch.Tensor) -> torch.Tensor:
-    """τ as a float32 tensor of shape () (one for all) or v.shape[:-2] (one
-    per matrix, a broadcast view where τ broadcasts).  Takes a number or a
-    (..., 1, 1) tensor that broadcasts over v's leading dimensions, as the
-    solve's ``thr_S`` is."""
-    t = torch.as_tensor(tau, dtype=torch.float32, device=v.device)
+    """τ as a tensor of v's real dtype (float32 for the kernel's complex64)
+    of shape () (one for all) or v.shape[:-2] (one per matrix, a broadcast
+    view where τ broadcasts).  Takes a number or a (..., 1, 1) tensor that
+    broadcasts over v's leading dimensions, as the solve's ``thr_S`` is."""
+    t = torch.as_tensor(tau, dtype=v.real.dtype, device=v.device)
     if t.dim() == 0:
         return t
     if t.dim() < 2 or t.shape[-2:] != (1, 1):
         raise ValueError(f"tau must be a number or shaped (..., 1, 1), got {tuple(t.shape)}")
     return t[..., 0, 0].broadcast_to(v.shape[:-2])
+
+
+def kernel_takes(dtype: torch.dtype) -> bool:
+    """Whether :func:`fused_soft_threshold` takes a v of this dtype:
+    complex64.  The callers' route (:func:`fused_soft_threshold_routed`) is
+    decided by this, before any launch.  Pure Python."""
+    return dtype is torch.complex64
 
 
 def fused_soft_threshold_plain(v: torch.Tensor, tau) -> torch.Tensor:
@@ -120,3 +129,20 @@ def fused_soft_threshold(v: torch.Tensor, tau) -> torch.Tensor:
 
 
 fused_soft_threshold.launches = 0
+
+
+def fused_soft_threshold_routed(v: torch.Tensor, tau) -> torch.Tensor:
+    """The soft threshold by the route v allows, decided before any launch:
+    :func:`fused_soft_threshold`'s kernel for a CUDA v it takes
+    (:func:`kernel_takes`), else :func:`fused_soft_threshold_plain` on v's
+    device and at its dtype, as the JAX package's solvers compute it.
+    ``fused_soft_threshold_routed.kernel_calls`` and ``.plain_calls`` count
+    the calls of each route."""
+    if v.is_cuda and kernel_takes(v.dtype):
+        fused_soft_threshold_routed.kernel_calls += 1
+        return fused_soft_threshold(v, tau)
+    fused_soft_threshold_routed.plain_calls += 1
+    return fused_soft_threshold_plain(v, tau)
+
+
+fused_soft_threshold_routed.kernel_calls = fused_soft_threshold_routed.plain_calls = 0

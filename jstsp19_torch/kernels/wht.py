@@ -16,7 +16,9 @@ The plain versions (:func:`fwht_plain`, :func:`ifwht_plain`) are
 same arithmetic as the kernel, so the two agree bit for bit.
 :func:`fwht_kernel` takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.  ``fwht_kernel.launches`` counts
-kernel launches.
+kernel launches.  :func:`kernel_takes` says which operands the kernel
+takes, so that a caller can route the others to the plain version before
+any launch.
 """
 from __future__ import annotations
 
@@ -106,6 +108,14 @@ def plan_fwht(n: int, elem_bytes: int) -> FwhtPlan:
     units = block_bytes // REG_BYTES if cluster == 1 else block_bytes // (2 * REG_BYTES)
     threads = min(MAX_THREADS, max(32, units))
     return FwhtPlan("row" if cluster == 1 else "cluster", cluster, threads, block_bytes)
+
+
+def kernel_takes(dtype: torch.dtype, n: int) -> bool:
+    """Whether :func:`fwht_kernel` takes rows of n entries of this dtype:
+    float32 or complex64, n a power of two from 2 to 2^MAX_LOG2N.  The
+    callers' route (``ops/fourier.py``) is decided by this, before any
+    launch; everything else takes the plain version.  Pure Python."""
+    return dtype in (torch.float32, torch.complex64) and 2 <= n <= 1 << MAX_LOG2N and not n & (n - 1)
 
 
 def _fwht_natural(x: torch.Tensor) -> torch.Tensor:

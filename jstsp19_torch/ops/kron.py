@@ -19,7 +19,8 @@ realization, so every transpose is ``.mT``/``.mH`` (JAX's ``.T`` on its 2-D
 matrices; ``.T`` here would also reverse the batch axis).  ``rmv`` goes
 through the dictionary-correlation kernel's wrapper
 (``kernels/dictionary.py``: the CUDA kernel on CUDA tensors) where the three
-operands are complex64 and the kernel's layout holds A (``fits``); any other
+operands are complex64 and the kernel's layout holds A
+(``kernels/dictionary.py::kernel_takes``); any other
 operator (a real one, or an A too large for a block's shared memory) takes
 JAX's own form, ``Aᴴ·Y·Bᴴ`` by ``torch.matmul``.  The route is decided from
 dtypes and shapes before any launch; ``KronDictOp.kernel_rmvs`` and
@@ -33,7 +34,7 @@ from typing import Tuple
 
 import torch
 
-from jstsp19_torch.kernels.dictionary import dict_correlation, fits
+from jstsp19_torch.kernels.dictionary import dict_correlation, kernel_takes
 from jstsp19_torch.ops.base import LinOp
 
 
@@ -60,8 +61,7 @@ class KronDictOp(LinOp):
 
     def rmv(self, Y):
         A, B = self.A, self.B
-        if all(t.dtype is torch.complex64 for t in (A, Y, B)) and fits(Y.shape[-2], Y.shape[-1], A.shape[-1],
-                                                                       B.shape[-2]):
+        if kernel_takes((A.dtype, Y.dtype, B.dtype), Y.shape[-2], Y.shape[-1], A.shape[-1], B.shape[-2]):
             KronDictOp.kernel_rmvs += 1
             return dict_correlation(A, Y, B)
         KronDictOp.matmul_rmvs += 1

@@ -16,8 +16,9 @@ Per ADMM iteration the only traffic is the all-reduce over sp of an (N, N)
 Gram and an (N, K) correlation, and over tp of two (N, K) products, two
 scalars a realization and, at the end, the error terms — the JAX program's
 ``psum`` points.  The soft threshold goes through
-``kernels/softthresh.py::fused_soft_threshold`` (the CUDA kernel on CUDA
-tensors).  Under gloo with the ranks on a card, each all-reduce goes through
+``kernels/softthresh.py::fused_soft_threshold_routed`` (the CUDA kernel for
+complex64 CUDA tensors, the plain soft threshold at the operand's dtype for
+any other).  Under gloo with the ranks on a card, each all-reduce goes through
 a host copy (``parallel/distributed.py``'s backend rule).
 """
 from __future__ import annotations
@@ -25,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from jstsp19_torch.kernels.softthresh import fused_soft_threshold
+from jstsp19_torch.kernels.softthresh import fused_soft_threshold_routed
 
 
 def local_blocks(mesh, subY, Omega, A, B, tau_Y, tau_S, rho, Zbar):
@@ -96,7 +97,7 @@ def sharded_admm_step(mesh, Imax: int = 5):
             pos = den > 0
             alpha = torch.where(pos, num / torch.where(pos, den, torch.ones_like(den)), 0.0)
             v = v + alpha[:, None, None] * res
-            S = fused_soft_threshold(v, (tau_S / rho)[:, None, None].contiguous())
+            S = fused_soft_threshold_routed(v, (tau_S / rho)[:, None, None].contiguous())
             Xs = AS(S) @ B
             C = rh / (rh + 1.0) * (X - Xs - V2 / rh)
             V1 = V1 + rh * (Y - X)

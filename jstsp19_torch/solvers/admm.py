@@ -14,8 +14,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from jstsp19_torch.kernels.dictionary import dict_correlation, dict_correlation_plain
-from jstsp19_torch.kernels.softthresh import fused_soft_threshold, fused_soft_threshold_plain
+from jstsp19_torch.kernels.dictionary import dict_correlation_plain, dict_correlation_routed
+from jstsp19_torch.kernels.softthresh import fused_soft_threshold_plain, fused_soft_threshold_routed
 from jstsp19_torch.ops.jacobi import jacobi_svt_fn
 from jstsp19_torch.ops.tracked import make_tracked_svt
 from jstsp19_torch.solvers.lowrank import _col, svt
@@ -112,9 +112,10 @@ def proposed_admm(
          float32 on the CPU); every
          other product runs in full float32.
       use_kernels: the correlation Aᴴ·K·Bᴴ and the soft threshold go
-         through their kernels' wrappers (``kernels/dictionary.py``,
-         ``kernels/softthresh.py``: the CUDA kernels on CUDA tensors);
-         False runs their plain PyTorch versions.
+         through their kernels' routes (``kernels/dictionary.py``,
+         ``kernels/softthresh.py``: the CUDA kernels for complex64 CUDA
+         operands they take, the plain versions at the operands' dtype for
+         any other); False runs their plain PyTorch versions.
     """
     N, M = subY.shape[-2:]
     Gr = A.shape[-1]
@@ -142,8 +143,8 @@ def proposed_admm(
     tracked = svt_method == "tracked"
 
     total = Gr * K
-    correlate = dict_correlation if use_kernels else dict_correlation_plain
-    shrink = fused_soft_threshold if use_kernels else fused_soft_threshold_plain
+    correlate = dict_correlation_routed if use_kernels else dict_correlation_plain
+    shrink = fused_soft_threshold_routed if use_kernels else fused_soft_threshold_plain
 
     def sqn(X):
         if conv_norm == "fro":

@@ -254,7 +254,9 @@ def amp_est(y, op, prior, nit: int = 50, rvar_method: str = "mean", wvar=None, e
       spectrum.  Needs ``wvar``.
 
     The first iteration always takes the residual's power
-    (``ampEst.m:229-231``).  ``wvar`` is a number or (B, 1); every scalar of
+    (``ampEst.m:229-231``).  The state is float32 (complex64) as JAX's,
+    float64 (complex128) where y is, so that a float64 solve's transforms
+    all run at float64.  ``wvar`` is a number or (B, 1); every scalar of
     the recursion is one per realization, (B, 1).  Assumes unit-norm
     columns; ``damp`` (1.0 as the reference) damps the corrected residual.
     Returns the final estimate x (B, n).
@@ -266,6 +268,9 @@ def amp_est(y, op, prior, nit: int = 50, rvar_method: str = "mean", wvar=None, e
     delta = M / N
     x0, xvar0 = prior.init_moments()
     xdtype = _state_dtype(x0, y)
+    if y.dtype in (torch.float64, torch.complex128):  # a float64 observation keeps a float64 state, as in gamp_est
+        xdtype = {torch.float32: torch.float64, torch.complex64: torch.complex128}[xdtype]
+    rdt = xdtype.to_real()
     col = batch + (1,) * len(op.in_shape)
     x = _full(x0, batch + tuple(op.in_shape), xdtype, dev)
     in_dims = tuple(range(-len(op.in_shape), 0))
@@ -304,8 +309,8 @@ def amp_est(y, op, prior, nit: int = 50, rvar_method: str = "mean", wvar=None, e
             return 0.5 * (lo + hi)
 
     vhat = torch.zeros(batch + tuple(op.out_shape), dtype=xdtype, device=dev)
-    rvar = torch.ones(col, dtype=torch.float32, device=dev)
-    xvar = _full(torch.as_tensor(xvar0).real.float().mean(), col, torch.float32, dev)
+    rvar = torch.ones(col, dtype=rdt, device=dev)
+    xvar = _full(torch.as_tensor(xvar0).real.to(rdt).mean(), col, rdt, dev)
     for it in range(nit):
         div = xvar / rvar
         gain = 1.0 - 1.0 / S_of(-div) if evals_aah is not None else div / delta

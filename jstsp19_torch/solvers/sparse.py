@@ -6,7 +6,7 @@
 ``sparse_admm`` is batched over realizations: every observation carries a
 leading batch dimension, and the dictionaries are shared or one per
 realization.  Its two products of the form Aᴴ·K·Bᴴ and its soft threshold
-go through the kernels' wrappers (``kernels/dictionary.py``,
+go through the kernels' routes (``kernels/dictionary.py``,
 ``kernels/softthresh.py``), which this module imports inside the solve:
 ``kernels/softthresh.py`` takes :func:`soft_threshold` from here as its
 plain version.
@@ -38,14 +38,17 @@ def sparse_admm(Htrue: torch.Tensor, OH: torch.Tensor, Dr: torch.Tensor, Dt: tor
     DrᴴDr ⊗ (DtᴴDt)*, eigenvalues ``outer(dr, dt) − ρ``.
 
     With ``use_kernels`` (the default) ``Drᴴ·OH·Dt`` and each solve's
-    ``Urᴴ·K·Ut`` go through ``dict_correlation`` (Aᴴ·K·Bᴴ with B = Dtᴴ and
-    Utᴴ: Imax + 1 launches a solve on the card) and the threshold through
-    ``fused_soft_threshold`` (Imax launches); without it, through
-    their plain versions.  Returns (S (B, Gr, Gt),
-    the NMSE of Dr·S·Dtᴴ against Htrue per iteration, (B, Imax)).
+    ``Urᴴ·K·Ut`` go through ``dict_correlation_routed`` (Aᴴ·K·Bᴴ with B =
+    Dtᴴ and Utᴴ: Imax + 1 kernel launches a solve on the card) and the
+    threshold through ``fused_soft_threshold_routed`` (Imax launches); each
+    takes its kernel only for complex64 CUDA operands the kernel takes, and
+    its plain version at the operands' dtype for any other (a complex128
+    solve launches nothing).  Without ``use_kernels``, the plain versions.
+    Returns (S (B, Gr, Gt), the NMSE of Dr·S·Dtᴴ against Htrue per
+    iteration, (B, Imax)).
     """
-    from jstsp19_torch.kernels.dictionary import dict_correlation, dict_correlation_plain
-    from jstsp19_torch.kernels.softthresh import fused_soft_threshold
+    from jstsp19_torch.kernels.dictionary import dict_correlation_plain, dict_correlation_routed
+    from jstsp19_torch.kernels.softthresh import fused_soft_threshold_routed
 
     dr, Ur = torch.linalg.eigh(Dr.mH @ Dr)
     dt, Ut = torch.linalg.eigh(Dt.mH @ Dt)
@@ -53,7 +56,7 @@ def sparse_admm(Htrue: torch.Tensor, OH: torch.Tensor, Dr: torch.Tensor, Dt: tor
     if use_kernels:  # the kernel reads dense operands (eigh's vectors are column-major)
         Dr, OH, Ur = Dr.contiguous(), OH.contiguous(), Ur.contiguous()
         Dt_h, Ut_h = Dt.mH.contiguous(), Ut.mH.contiguous()
-        ah_k_b, threshold = dict_correlation, fused_soft_threshold
+        ah_k_b, threshold = dict_correlation_routed, fused_soft_threshold_routed
     else:
         Dt_h, Ut_h = Dt.mH, Ut.mH
         ah_k_b, threshold = dict_correlation_plain, soft_threshold

@@ -794,3 +794,98 @@ def test_kron_rmv_matmul_route_on_the_card_matches_the_cpu(cuda, dtype):
     op = KronDictOp(_crandn(cuda, 4, 8, 32), _crandn(cuda, 4, 16, 16, seed=1))
     op.rmv(_crandn(cuda, 4, 8, 16, seed=2))
     assert dict_correlation.launches == launches + 1
+
+
+def _launches():
+    return [k.launches for k in (fused_tracked_admm, dict_correlation, fused_soft_threshold, fwht_kernel)]
+
+
+def _rel_per_realization(got, ref):
+    """The largest over realizations of max|Δ| / max|ref| (the card's result
+    brought to the CPU)."""
+    d = (got.cpu() - ref).abs().flatten(1).amax(1)
+    return float((d / ref.abs().flatten(1).amax(1)).max())
+
+
+def test_fwht_routes_by_dtype_and_length_on_the_card(cuda):
+    """float64, complex128, n = 1 and n = 2^25 (over the kernel's 2^24) take
+    the plain route on the card, launch nothing and equal the CPU (float64
+    to 1e-12 of max|x|); float32 at 2^16 still launches the kernel."""
+    from jstsp19_torch.ops import fourier
+
+    rng = np.random.default_rng(0)
+    cases = [torch.from_numpy(rng.standard_normal((4, 4096))),
+             torch.from_numpy(rng.standard_normal((4, 64)) + 1j * rng.standard_normal((4, 64))),
+             torch.from_numpy(rng.standard_normal((4, 1)).astype(np.float32)),
+             torch.from_numpy(rng.standard_normal((1, 1 << 25)).astype(np.float32)),
+             torch.from_numpy(rng.standard_normal((1, 1 << 25)))]
+    before, calls = _launches(), (fourier.fwht.kernel_calls, fourier.ifwht.kernel_calls)
+    for x in cases:
+        for ordering in ("sequency", "natural"):
+            y = fourier.fwht(x.to(cuda), ordering)
+            back = fourier.ifwht(y, ordering)
+            assert y.dtype == x.dtype and back.dtype == x.dtype
+            want = fourier.fwht(x, ordering)
+            tol = 1e-12 if x.dtype in (torch.float64, torch.complex128) else 1e-6
+            assert float((y.cpu() - want).abs().max()) <= tol * float(want.abs().max())
+            assert float((back.cpu() - x).abs().max()) <= 10 * tol * float(x.abs().max())
+    torch.cuda.synchronize()
+    assert _launches() == before and (fourier.fwht.kernel_calls, fourier.ifwht.kernel_calls) == calls
+    fourier.fwht(torch.randn(4, 1 << 16, device=cuda))
+    assert fwht_kernel.launches == before[3] + 1 and fourier.fwht.kernel_calls == calls[0] + 1
+
+
+def test_float64_gamp_est_and_amp_est_on_the_card_match_the_cpu_and_launch_nothing(cuda):
+    """A float64 partial-Hadamard problem (B=4, n=4096) through gamp_est
+    (mean removal off) and amp_est on ``SubsetOp(FWHTOp)``: no kernel
+    launched, the card within 1e-8 of the CPU per realization."""
+    from jstsp19_torch.harness import amp_sparse as aps
+    from jstsp19_torch.solvers.gamp import amp_est
+
+    prob = hcs.hadamard_cs_problem(seed=3, batch=4, n=4096)
+    prob = dict(prob, y=prob["y"].astype(np.float64), wvar=prob["wvar"].astype(np.float64))
+    before = _launches()
+    got = {dev: gamp_est(*hcs.hadamard_cs_torch(prob, dev))[0].xhat for dev in (cuda, "cpu")}
+    assert got["cpu"].dtype is torch.float64 and got[cuda].dtype is torch.float64
+    assert _rel_per_realization(got[cuda], got["cpu"]) <= 1e-8
+    got = {}
+    for dev in (cuda, "cpu"):
+        y, op, prior, _ = aps.hadamard_amp_torch(prob, dev)
+        got[dev] = amp_est(y, op, prior, nit=aps.AMP_NIT)
+    assert got["cpu"].dtype is torch.float64
+    assert _rel_per_realization(got[cuda], got["cpu"]) <= 1e-8
+    torch.cuda.synchronize()
+    assert _launches() == before
+
+
+def test_complex128_sparse_admm_and_proposed_admm_on_the_card_match_the_cpu_and_launch_nothing(cuda):
+    """complex128 ``sparse_admm`` (32×4, B=8, Imax 50) and
+    ``proposed_admm(use_kernels=True)`` at the errorVSnrf shape (B=4, Imax
+    25): the routes take the plain versions (no kernel launched), and the
+    card is within 1e-8 of the CPU per realization."""
+    from jstsp19_torch.harness import amp_sparse as aps
+    from jstsp19_torch.kernels import dictionary, softthresh
+    from jstsp19_torch.solvers.sparse import sparse_admm
+
+    wide = {torch.complex64: torch.complex128, torch.float32: torch.float64}
+    bp = aps.beamspace_problem(batch=8)
+    before = _launches()
+    routed = (dictionary.dict_correlation_routed.kernel_calls, softthresh.fused_soft_threshold_routed.kernel_calls)
+    got = {}
+    for dev in (cuda, "cpu"):
+        d = {k: v.to(wide[v.dtype]) for k, v in aps.to_device(bp, dev).items()}
+        got[dev] = sparse_admm(d["H"], d["OH"], d["Dr"], d["Dt"], 50)[0]
+    assert got[cuda].dtype is torch.complex128
+    assert _rel_per_realization(got[cuda], got["cpu"]) <= 1e-8
+    pc = PointConfig(Mr=16, T=5, methods=("proposed",))
+    prob = proposed_problem(prng.realization_generators(4, 3, "cpu"), pc, 10 ** -0.5, 4)
+    args = [prob[k].to(wide.get(prob[k].dtype, prob[k].dtype))
+            for k in ("subY", "Omega", "A", "B", "tau_Y", "tau_S", "rho")]
+    got = {dev: proposed_admm(*[a.to(dev) for a in args[:4]], IMAX, *[a.to(dev) for a in args[4:]]).S
+           for dev in (cuda, "cpu")}
+    assert got[cuda].dtype is torch.complex128
+    assert _rel_per_realization(got[cuda], got["cpu"]) <= 1e-8
+    torch.cuda.synchronize()
+    assert _launches() == before
+    assert (dictionary.dict_correlation_routed.kernel_calls,
+            softthresh.fused_soft_threshold_routed.kernel_calls) == routed
