@@ -1,0 +1,136 @@
+"""Spans of the port's layers, kept in memory while :func:`recording` is open.
+
+``with span("frontend"):`` marks the work of one layer.  Outside
+:func:`recording` (the default) :func:`span` returns one shared object that
+does nothing: it reads no clock, allocates nothing and makes no CUDA call.
+Inside, each span records a :class:`Span`: its name, its id, its parent's
+id, the id of the ``point`` span it lies in (every span of one
+``harness.runner.run_point`` call shares it), its start and end on the
+host's ``time.perf_counter_ns()`` and its attributes.  While a profiler
+records, it also opens ``torch.profiler.record_function("jstsp19.<name>")``,
+so that the span is a ``user_annotation`` event on the trace's own clock,
+beside the kernels and runtime calls it caused; without one it leaves the
+range out, which would cost more than the rest of the span.
+
+The spans of a fused point (``run_point``'s route 'fused'): ``point``
+(attributes ``sweep_index``, ``n_mc``, ``route``, and at its end
+``realizations`` and ``launches``, the change of
+``kernels.launch_counts()`` over the point) holds ``frontend`` (``draws``,
+``dictionaries``, ``hyperparams``, ``oracle_rank``), per method ``solve``
+(``pack`` and ``launch`` on the card) and ``nmse``, and ``to_host``.  One
+thread records: the recorder is the process's, as the profiler is.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Dict, Iterator, List, Optional
+
+import torch
+
+PREFIX = "jstsp19."  # the profiler range of span ``name`` is ``PREFIX + name``
+POINT = "point"
+
+
+@dataclasses.dataclass
+class Span:
+    name: str
+    id: int
+    parent: Optional[int]  # the id of the span open when this one opened
+    point: Optional[int]  # the id of the ``point`` span this one lies in (its own, for a point)
+    start_ns: int
+    end_ns: int
+    attrs: Dict[str, object]
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+
+class _Off:
+    """The span outside :func:`recording`: it enters, exits and takes
+    attributes, and does nothing."""
+
+    __slots__ = ()
+    on = False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
+
+    def set(self, **attrs) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+class _Recorder:
+    def __init__(self):
+        self.spans: List[Span] = []  # finished, in the order they ended
+        self.open: List[Span] = []
+        self.next_id = 0
+
+
+class _On:
+    """A span inside :func:`recording`."""
+
+    __slots__ = ("_recorder", "_span", "_range")
+    on = True
+
+    def __init__(self, recorder: _Recorder, name: str, attrs: Dict[str, object]):
+        parent = recorder.open[-1] if recorder.open else None
+        sid = recorder.next_id
+        recorder.next_id += 1
+        point = sid if name == POINT else (parent.point if parent else None)
+        self._recorder = recorder
+        self._span = Span(name, sid, parent.id if parent else None, point, 0, 0, attrs)
+        self._range = torch.profiler.record_function(PREFIX + name) if torch.autograd._profiler_enabled() else None
+
+    def __enter__(self):
+        if self._range is not None:
+            self._range.__enter__()
+        self._recorder.open.append(self._span)
+        self._span.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self._span.end_ns = time.perf_counter_ns()
+        self._recorder.open.pop()
+        self._recorder.spans.append(self._span)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return None
+
+    def set(self, **attrs) -> None:
+        """Add attributes, such as counts known only at the span's end."""
+        self._span.attrs.update(attrs)
+
+
+_RECORDER: Optional[_Recorder] = None
+
+
+def span(name: str, **attrs):
+    """A context manager that records the block as span ``name`` while
+    :func:`recording` is open, and does nothing otherwise.  What it returns
+    has ``on`` (whether it records) and ``set(**attrs)``."""
+    recorder = _RECORDER
+    if recorder is None:
+        return _OFF
+    return _On(recorder, name, attrs)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[List[Span]]:
+    """Record every span opened inside the block; yields the list of
+    finished spans, complete when the block ends."""
+    global _RECORDER
+    outer, _RECORDER = _RECORDER, _Recorder()
+    spans = _RECORDER.spans
+    try:
+        yield spans
+    finally:
+        _RECORDER = outer

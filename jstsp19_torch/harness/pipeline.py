@@ -21,6 +21,7 @@ from jstsp19_torch.channel import channel_from_taps, wideband_mmwave_channel
 from jstsp19_torch.core import prng
 from jstsp19_torch.core.config import matlab_round, use_full_fp32
 from jstsp19_torch.core.metrics import clamped_nmse, nmse
+from jstsp19_torch.core.trace import span
 from jstsp19_torch.frontend import awgn, create_beamformer, hbf, proposed_hbf, qam4_training_frames
 from jstsp19_torch.solvers.admm import (
     admm_hyperparams,
@@ -171,10 +172,15 @@ def _proposed_frontend(gens, pc: PointConfig, noise_var, batch: int, H_ext=None,
     ``draws``: an already drawn ``(ch, Psi, N, W, obs)``; ``rows`` as in
     :func:`point_draws`."""
     use_full_fp32()
-    ch, Psi, _, _, obs = draws or point_draws(gens, pc, noise_var, batch, H_ext, rows=rows)
-    A_p, B_p = _dictionaries(ch, obs.W_e, Psi)
-    A_p = _per_realization(A_p, ch.H.shape[0])
-    tau_Y, tau_S, rho = admm_hyperparams(obs.Y, ch.Zbar)
+    if draws is None:
+        with span("draws"):
+            draws = point_draws(gens, pc, noise_var, batch, H_ext, rows=rows)
+    ch, Psi, _, _, obs = draws
+    with span("dictionaries"):
+        A_p, B_p = _dictionaries(ch, obs.W_e, Psi)
+        A_p = _per_realization(A_p, ch.H.shape[0])
+    with span("hyperparams"):
+        tau_Y, tau_S, rho = admm_hyperparams(obs.Y, ch.Zbar)
     return ch, obs, A_p, B_p, tau_Y, tau_S, rho * pc.rho_scale
 
 
@@ -294,13 +300,15 @@ def proposed_problem(gens, pc: PointConfig, noise_var, batch: int, H_ext=None, r
     (``plot_errorVSsnr.m:48-146``): subY, Omega, A, B, tau_Y, tau_S, rho,
     Zbar and the Algorithm-3 support rank, as the fused kernel takes them;
     ``H_ext`` and ``rows`` as in :func:`realization_errors`."""
-    ch, obs, A_p, B_p, tau_Y, tau_S, rho = _proposed_frontend(gens, pc, noise_var, batch, H_ext, rows=rows)
-    total = pc.Gr * pc.L * pc.Gt
-    rank = support_rank_from_order(_oracle_order(ch.Zbar), total).reshape(ch.Zbar.shape)
-    return dict(
-        subY=obs.Y.contiguous(), Omega=obs.Omega.contiguous(), A=A_p, B=B_p.contiguous(),
-        tau_Y=tau_Y, tau_S=tau_S, rho=rho, Zbar=ch.Zbar, rank=rank,
-    )
+    with span("frontend"):
+        ch, obs, A_p, B_p, tau_Y, tau_S, rho = _proposed_frontend(gens, pc, noise_var, batch, H_ext, rows=rows)
+        total = pc.Gr * pc.L * pc.Gt
+        with span("oracle_rank"):
+            rank = support_rank_from_order(_oracle_order(ch.Zbar), total).reshape(ch.Zbar.shape)
+        return dict(
+            subY=obs.Y.contiguous(), Omega=obs.Omega.contiguous(), A=A_p, B=B_p.contiguous(),
+            tau_Y=tau_Y, tau_S=tau_S, rho=rho, Zbar=ch.Zbar, rank=rank,
+        )
 
 
 def fused_point_errors(gens, pc: PointConfig, noise_var, batch: int, rows=None) -> Dict[str, torch.Tensor]:
@@ -319,13 +327,19 @@ def fused_point_errors(gens, pc: PointConfig, noise_var, batch: int, rows=None) 
         )
     prob = proposed_problem(gens, pc, noise_var, batch, rows=rows)
     args = (prob["subY"], prob["Omega"], prob["A"], prob["B"], prob["tau_Y"], prob["tau_S"], prob["rho"])
+    Bt, N, M = prob["subY"].shape
+    shapes = dict(B=Bt, N=N, M=M, Gr=prob["A"].shape[-1], K=prob["B"].shape[-2], Imax=pc.Imax)
     out = {}
     if "proposed" in pc.methods:
-        S, _ = fused_tracked_admm(*args, Imax=pc.Imax, track_rounds=pc.track_rounds)
-        out["proposed"] = clamped_nmse(S, prob["Zbar"])
+        with span("solve", method="proposed", **shapes):
+            S, _ = fused_tracked_admm(*args, Imax=pc.Imax, track_rounds=pc.track_rounds)
+        with span("nmse", method="proposed"):
+            out["proposed"] = clamped_nmse(S, prob["Zbar"])
     if "proposed_angles" in pc.methods:
-        S_a, _ = fused_tracked_admm(
-            *args, Imax=pc.Imax, track_rounds=pc.track_rounds, support_rank=prob["rank"]
-        )
-        out["proposed_angles"] = clamped_nmse(S_a, prob["Zbar"])
+        with span("solve", method="proposed_angles", **shapes):
+            S_a, _ = fused_tracked_admm(
+                *args, Imax=pc.Imax, track_rounds=pc.track_rounds, support_rank=prob["rank"]
+            )
+        with span("nmse", method="proposed_angles"):
+            out["proposed_angles"] = clamped_nmse(S_a, prob["Zbar"])
     return out

@@ -20,10 +20,10 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from jstsp19_torch.core import prng
+from jstsp19_torch.core import prng, trace
 from jstsp19_torch.core.config import COMPLEX_DTYPE, resolve_device
 from jstsp19_torch.harness.pipeline import PointConfig, fused_point_errors, realization_errors
-from jstsp19_torch.kernels import admm_fused
+from jstsp19_torch.kernels import admm_fused, launch_counts
 
 FUSED_METHODS = ("proposed", "proposed_angles")
 
@@ -122,34 +122,47 @@ def run_point(
     whole point's draws; the arrays then have its length.  Under
     :func:`set_distributed_mesh` (and without ``rows``) every rank solves
     its share and every rank returns the whole point.
+
+    Under ``core.trace.recording()`` the call is a ``point`` span, with the
+    realizations it solved and the kernel launches it made
+    (``core/trace.py``).
     """
     if _DISTRIBUTED["mesh"] is not None and rows is None:
         from jstsp19_torch.parallel.distributed import distributed_run_point
 
         return distributed_run_point(pc, noise_var, n_mc, seed=seed, sweep_index=sweep_index, device=device,
                                      taps=taps, mesh=_DISTRIBUTED["mesh"])
-    device = resolve_device(device)
-    if taps is not None:
-        if taps.shape[0] != n_mc:
-            raise ValueError(f"taps batch {taps.shape[0]} != n_mc {n_mc}")
-        taps = taps.to(device=device, dtype=COMPLEX_DTYPE)
+    route = svt_route(pc, with_taps=taps is not None)
+    with trace.span("point", sweep_index=sweep_index, n_mc=n_mc, route=route) as point:
+        launched = launch_counts() if point.on else None
+        device = resolve_device(device)
+        if taps is not None:
+            if taps.shape[0] != n_mc:
+                raise ValueError(f"taps batch {taps.shape[0]} != n_mc {n_mc}")
+            taps = taps.to(device=device, dtype=COMPLEX_DTYPE)
 
-    def gens():
-        return prng.realization_generators(seed, sweep_index, device)
+        def gens():
+            return prng.realization_generators(seed, sweep_index, device)
 
-    pc = dataclasses.replace(pc, svt_method=svt_route(pc, with_taps=taps is not None))
-    if pc.svt_method == "fused":
-        out = {}
-        fused = tuple(m for m in FUSED_METHODS if m in pc.methods)
-        if fused:
-            out.update(fused_point_errors(gens(), dataclasses.replace(pc, methods=fused), noise_var, n_mc, rows=rows))
-        rest = tuple(m for m in pc.methods if m not in FUSED_METHODS)
-        if rest:
-            pcr = dataclasses.replace(pc, methods=rest, svt_method="tracked")
-            out.update(realization_errors(gens(), pcr, noise_var, n_mc, rows=rows))
-    else:
-        out = realization_errors(gens(), pc, noise_var, n_mc, H_ext=taps, rows=rows)
-    return {k: v.cpu().numpy() for k, v in out.items()}
+        pc = dataclasses.replace(pc, svt_method=route)
+        if pc.svt_method == "fused":
+            out = {}
+            fused = tuple(m for m in FUSED_METHODS if m in pc.methods)
+            if fused:
+                out.update(fused_point_errors(gens(), dataclasses.replace(pc, methods=fused), noise_var, n_mc,
+                                              rows=rows))
+            rest = tuple(m for m in pc.methods if m not in FUSED_METHODS)
+            if rest:
+                pcr = dataclasses.replace(pc, methods=rest, svt_method="tracked")
+                out.update(realization_errors(gens(), pcr, noise_var, n_mc, rows=rows))
+        else:
+            out = realization_errors(gens(), pc, noise_var, n_mc, H_ext=taps, rows=rows)
+        with trace.span("to_host"):
+            answers = {k: v.cpu().numpy() for k, v in out.items()}
+        if point.on:
+            point.set(realizations=n_mc if rows is None else len(range(n_mc)[rows]),
+                      launches={k: n - launched[k] for k, n in launch_counts().items()})
+    return answers
 
 
 # process-wide checkpoint defaults, so the CLI can enable sweep resume

@@ -11,7 +11,8 @@ SM.  The plain version (:func:`fused_tracked_admm_plain`) is the port's
 
 :func:`fused_tracked_admm` takes the plain version for CPU tensors only; for
 CUDA tensors it launches the kernel or raises.  ``fused_tracked_admm.launches``
-counts kernel launches.
+counts kernel launches.  Under ``core.trace.recording()`` the wrapper's
+operand packing is a ``pack`` span and the launch a ``launch`` span.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from jstsp19_torch.core.config import use_full_fp32
+from jstsp19_torch.core.trace import span
 from jstsp19_torch.kernels.build import SMEM_LIMIT_BYTES, check_tensor as _check, current_stream, raise_on_launch_error
 from jstsp19_torch.ops.jacobi import _round_robin_schedule
 from jstsp19_torch.solvers.admm import proposed_admm
@@ -187,32 +189,34 @@ def _launch(
     """Launches ``lib``'s kernel with ``smem_bytes`` of dynamic shared memory
     (the plan's, or more to keep a second block off an SM) on checked
     inputs and returns ``(S, Y)``."""
-    Bt, N, M = subY.shape
-    Gr, K = A.shape[-1], B.shape[-2]
-    dev = subY.device
-    use_full_fp32()
-    # products outside the solve, as the JAX wrapper computes them; the
-    # small complex operands go in as (re, im) plane pairs, the (N, M) ones
-    # as a record per element
-    hp = torch.stack([rho, tau_Y / rho, tau_S / rho, 1.0 / rho], dim=1).contiguous()
-    dinv = 1.0 / (Omega + 2.0 * rho[:, None, None])
-    planes = torch.stack([subY.real, subY.imag, dinv, torch.zeros_like(dinv)], dim=-1).contiguous()
-    A_p = torch.view_as_real(A).movedim(-1, 1).contiguous()
-    B_p = torch.view_as_real(B).movedim(-1, 1).contiguous()
-    AhA_t = torch.view_as_real((A.mH @ A).transpose(-2, -1)).movedim(-1, 1).contiguous()  # [j][q] = (A^H A)[q][j]
-    BBh = torch.view_as_real(B @ B.mH).movedim(-1, 1).contiguous()
-    sched = torch.as_tensor(_round_robin_schedule(N), dtype=torch.int32, device=dev).contiguous()
-    s = torch.empty((Bt, 2, Gr, K), dtype=torch.float32, device=dev)
-    y = torch.zeros((Bt, N, M, 2), dtype=torch.float32, device=dev)
-    work = torch.zeros(Bt * N * M * 6, dtype=torch.float32, device=dev)  # (X, V1) records, then V2
-    rank_ptr = support_rank.data_ptr() if support_rank is not None else None
+    with span("pack"):
+        Bt, N, M = subY.shape
+        Gr, K = A.shape[-1], B.shape[-2]
+        dev = subY.device
+        use_full_fp32()
+        # products outside the solve, as the JAX wrapper computes them; the
+        # small complex operands go in as (re, im) plane pairs, the (N, M) ones
+        # as a record per element
+        hp = torch.stack([rho, tau_Y / rho, tau_S / rho, 1.0 / rho], dim=1).contiguous()
+        dinv = 1.0 / (Omega + 2.0 * rho[:, None, None])
+        planes = torch.stack([subY.real, subY.imag, dinv, torch.zeros_like(dinv)], dim=-1).contiguous()
+        A_p = torch.view_as_real(A).movedim(-1, 1).contiguous()
+        B_p = torch.view_as_real(B).movedim(-1, 1).contiguous()
+        AhA_t = torch.view_as_real((A.mH @ A).transpose(-2, -1)).movedim(-1, 1).contiguous()  # [j][q] = (A^H A)[q][j]
+        BBh = torch.view_as_real(B @ B.mH).movedim(-1, 1).contiguous()
+        sched = torch.as_tensor(_round_robin_schedule(N), dtype=torch.int32, device=dev).contiguous()
+        s = torch.empty((Bt, 2, Gr, K), dtype=torch.float32, device=dev)
+        y = torch.zeros((Bt, N, M, 2), dtype=torch.float32, device=dev)
+        work = torch.zeros(Bt * N * M * 6, dtype=torch.float32, device=dev)  # (X, V1) records, then V2
+        rank_ptr = support_rank.data_ptr() if support_rank is not None else None
     if Bt > 0:
-        rc = lib.fused_tracked_admm_launch(
-            planes.data_ptr(), A_p.data_ptr(), B_p.data_ptr(), AhA_t.data_ptr(), BBh.data_ptr(),
-            rank_ptr, hp.data_ptr(), sched.data_ptr(), s.data_ptr(), y.data_ptr(), work.data_ptr(),
-            Bt, N, M, Gr, K, Imax, track_rounds, support_base, support_step, smem_bytes,
-            current_stream(dev),
-        )
+        with span("launch"):
+            rc = lib.fused_tracked_admm_launch(
+                planes.data_ptr(), A_p.data_ptr(), B_p.data_ptr(), AhA_t.data_ptr(), BBh.data_ptr(),
+                rank_ptr, hp.data_ptr(), sched.data_ptr(), s.data_ptr(), y.data_ptr(), work.data_ptr(),
+                Bt, N, M, Gr, K, Imax, track_rounds, support_base, support_step, smem_bytes,
+                current_stream(dev),
+            )
         raise_on_launch_error("fused_tracked_admm", rc)
     return torch.complex(s[:, 0], s[:, 1]), torch.view_as_complex(y)
 
