@@ -14,6 +14,7 @@ device.  Consequences:
 """
 from __future__ import annotations
 
+import numbers
 from typing import Dict
 
 import numpy as np
@@ -54,10 +55,16 @@ def complex_normal(
 
     Matches the reference construction ``sqrt(v/2)*(randn + 1j*randn)``
     (``plot_errorVSsnr.m:60``).  ``var`` may be a tensor that broadcasts
-    against ``shape``.
+    against ``shape``.  A number is filled into a device scalar (the fill
+    carries it as an argument) rather than copied from the host, which would
+    block the host and which a CUDA graph may not capture; the scale is the
+    same ``sqrt(var / 2)`` in the real dtype either way, so the draws keep
+    their bits.
     """
     rdt = torch.float32 if dtype == torch.complex64 else torch.float64
     x = torch.randn((2, *shape), generator=gen, dtype=rdt, device=gen.device)
+    if isinstance(var, numbers.Real):
+        var = torch.full((), float(var), dtype=rdt, device=gen.device)
     scale = torch.sqrt(torch.as_tensor(var, dtype=rdt, device=gen.device) / 2)
     return torch.complex(x[0], x[1]) * scale
 

@@ -14,11 +14,17 @@ range out, which would cost more than the rest of the span.
 
 The spans of a fused point (``run_point``'s route 'fused'): ``point``
 (attributes ``sweep_index``, ``n_mc``, ``route``, and at its end
-``realizations`` and ``launches``, the change of
-``kernels.launch_counts()`` over the point) holds ``frontend`` (``draws``,
-``dictionaries``, ``hyperparams``, ``oracle_rank``), per method ``solve``
-(``pack`` and ``launch`` on the card) and ``nmse``, and ``to_host``.  One
-thread records: the recorder is the process's, as the profiler is.
+``realizations``, ``launches``, the change of ``kernels.launch_counts()``
+over the point, and ``captures`` and ``replays``, the change of
+``harness.frontend_graph.problem``'s counts) holds ``frontend``, per method
+``solve`` (``pack`` and ``launch`` on the card) and ``nmse``, and
+``to_host``.  ``frontend`` holds ``draws``, ``oracle_rank`` and
+``dictionaries`` where the front end runs eagerly (and, on the card, at a
+shape's first two points: the second captures them), ``replay`` (the CUDA
+graph of that work) where it replays, and either way ``hyperparams`` (ρ's
+eigenvalues; τ_Y, τ_S and the Gram before them are ``frontend``'s own
+eagerly and in the graph when replayed).  One thread records: the recorder
+is the process's, as the profiler is.
 """
 from __future__ import annotations
 

@@ -22,6 +22,7 @@ import torch
 
 from jstsp19_torch.core import prng, trace
 from jstsp19_torch.core.config import COMPLEX_DTYPE, resolve_device
+from jstsp19_torch.harness import frontend_graph
 from jstsp19_torch.harness.pipeline import PointConfig, fused_point_errors, realization_errors
 from jstsp19_torch.kernels import admm_fused, launch_counts
 
@@ -124,8 +125,8 @@ def run_point(
     its share and every rank returns the whole point.
 
     Under ``core.trace.recording()`` the call is a ``point`` span, with the
-    realizations it solved and the kernel launches it made
-    (``core/trace.py``).
+    realizations it solved, the kernel launches it made and the front end's
+    CUDA-graph captures and replays (``core/trace.py``).
     """
     if _DISTRIBUTED["mesh"] is not None and rows is None:
         from jstsp19_torch.parallel.distributed import distributed_run_point
@@ -135,6 +136,7 @@ def run_point(
     route = svt_route(pc, with_taps=taps is not None)
     with trace.span("point", sweep_index=sweep_index, n_mc=n_mc, route=route) as point:
         launched = launch_counts() if point.on else None
+        graphed = (frontend_graph.problem.captures, frontend_graph.problem.replays) if point.on else None
         device = resolve_device(device)
         if taps is not None:
             if taps.shape[0] != n_mc:
@@ -161,7 +163,9 @@ def run_point(
             answers = {k: v.cpu().numpy() for k, v in out.items()}
         if point.on:
             point.set(realizations=n_mc if rows is None else len(range(n_mc)[rows]),
-                      launches={k: n - launched[k] for k, n in launch_counts().items()})
+                      launches={k: n - launched[k] for k, n in launch_counts().items()},
+                      captures=frontend_graph.problem.captures - graphed[0],
+                      replays=frontend_graph.problem.replays - graphed[1])
     return answers
 
 

@@ -55,14 +55,27 @@ def admm_hyperparams(Y_obs: torch.Tensor, Zbar_ref: torch.Tensor, top_k: int = 6
     τ_Y = 1/‖Y‖²_F, τ_S = 1/(2‖Z̄‖²_F), ρ = sqrt(λ_k·τ_Y) with λ_k the
     top_k-th largest eigenvalue of the thin-side Gram (MATLAB ``eigs``'
     six largest; top_k clamps to the Gram size).  Batched."""
+    tau_Y, tau_S, G = admm_gram(Y_obs, Zbar_ref)
+    return tau_Y, tau_S, admm_rho(G, tau_Y, top_k)
+
+
+def admm_gram(Y_obs: torch.Tensor, Zbar_ref: torch.Tensor):
+    """τ_Y, τ_S and the thin-side Gram of Y: the part of
+    :func:`admm_hyperparams` before the eigenvalues, none of whose launches
+    waits on the device."""
     tau_Y = 1.0 / torch.sum(Y_obs.abs() ** 2, dim=(-2, -1))
     tau_S = 1.0 / (2.0 * torch.sum(Zbar_ref.abs() ** 2, dim=(-2, -1)))
     n, m = Y_obs.shape[-2], Y_obs.shape[-1]
-    top_k = min(top_k, n, m)
     G = Y_obs @ Y_obs.mH if n <= m else Y_obs.mH @ Y_obs
+    return tau_Y, tau_S, G
+
+
+def admm_rho(G: torch.Tensor, tau_Y: torch.Tensor, top_k: int = 6) -> torch.Tensor:
+    """ρ of :func:`admm_hyperparams` from the Gram and τ_Y of
+    :func:`admm_gram`; ``eigvalsh`` reads its error flag back, so on the
+    card the host waits here for the device."""
     ev = torch.linalg.eigvalsh(G)  # ascending
-    rho = torch.sqrt(torch.clamp(ev[..., -top_k], min=0.0) * tau_Y)
-    return tau_Y, tau_S, rho
+    return torch.sqrt(torch.clamp(ev[..., -min(top_k, G.shape[-1])], min=0.0) * tau_Y)
 
 
 def proposed_admm(

@@ -56,6 +56,7 @@ def test_a_fused_point_records_its_span_tree(rows):
     assert point.attrs["sweep_index"] == 3 and point.attrs["n_mc"] == N_MC and point.attrs["route"] == "fused"
     assert point.attrs["realizations"] == (N_MC if rows is None else 2)
     assert point.attrs["launches"] == dict.fromkeys(launch_counts(), 0)
+    assert point.attrs["captures"] == point.attrs["replays"] == 0  # the CPU runs the front end eagerly
     solves = [s.attrs for s in spans if s.name == "solve"]
     assert [a["method"] for a in solves] == ["proposed", "proposed_angles"]
     assert solves[0] == dict(solves[1], method="proposed")
