@@ -65,10 +65,9 @@ def run_cell(cell: cells.Cell, system, seed: int, seconds: float, traced: bool, 
     start on ``time.time()``'s clock."""
     cuda = system.device.type == "cuda"
     schedule = Schedule(cell.config, cell.traffic)
-    for pt in schedule.warmups():
-        if system.route(pt) != schedule.svt_method:
-            raise ValueError(f"{cell.name}: point {pt.params} would run on the {system.route(pt)!r} route, "
-                             f"not the traffic's {schedule.svt_method!r}")
+    warmups = schedule.warmups()
+    check.follows(system, warmups, schedule.svt_method)
+    for pt in warmups:
         system.run_point(pt)
     if cuda:
         torch.cuda.synchronize()

@@ -28,6 +28,7 @@ PASSES = 2
 def readings(cell: cells.Cell, system_cls, seed: int) -> dict:
     system = system_cls("cuda", seed)
     schedule = Schedule(cell.config, cell.traffic)
+    check.follows(system, schedule.warmups(), schedule.svt_method)
     points = schedule.window()
     done = [(pt, system.run_point(pt)) for pt, _ in zip(points, range(PASSES * schedule.size))]
     _, checks = check.run(system, done, seed, cell.limits)

@@ -6,15 +6,25 @@ of the points drawn from the seed (one of each distinct shape, and
 ``EXTRA_POINTS`` more) is compared with the reference at its full size, layer
 by layer:
 
+The check follows the route that each point runs (``perfbench/system.py``):
+the program's front end and solve are taken from the calls of that route,
+the fused kernel's or the tracked chain's, and held to the same reference,
+whose tracked SVT is the mathematics of both.  :func:`follows` refuses,
+before any point runs, a cell whose points would run a route or a method
+that the reference does not compute.
+
 - the front end, from the point's random numbers: the program's
-  (``proposed_problem``) against the reference's, ``frontend_rel_err`` (Zbar,
+  (``proposed_problem`` on the fused route, ``point_draws`` and
+  ``_proposed_frontend`` on the tracked) against the reference's,
+  ``frontend_rel_err`` (Zbar,
   the observation, A, B, tau_Y, tau_S and rho, each as max|difference| over
   max|reference|, the largest) and ``omega_mismatch`` (entries of the
   sampling mask that differ, exact);
 - the oracle order that Algorithm 3 takes from Zbar: the program's against
   the reference's order of the program's own Zbar, ``rank_mismatch`` (exact);
 - the solve, from the program's front end: the estimate S of each method
-  (``fused_tracked_admm``) against the reference's ADMM on the same
+  (``fused_tracked_admm``, or ``proposed_admm`` and ``proposed_admm_angles``
+  on the tracked route) against the reference's ADMM on the same
   problem, ``s_rel_err`` (per realization max|difference| over
   max|reference|, the largest);
 - the answers: the window's NMSE against the reference's NMSE of that S,
@@ -45,6 +55,20 @@ EXTRA_POINTS = 2
 UNREADABLE = 1e300  # what a number reads where its comparison gave no finite value (the result line is JSON)
 FRONTEND_KEYS = ("Zbar", "subY", "A", "B", "tau_Y", "tau_S", "rho")
 NUMBERS = ("frontend_rel_err", "omega_mismatch", "rank_mismatch", "s_rel_err", "nmse_gap", "answers_missing")
+
+
+def follows(system, points: Sequence[Point], route: str) -> None:
+    """Raise ValueError where a point of ``points`` would run another route
+    than ``route`` (the traffic's) or one that the reference cannot hold
+    the program to: a route or method it has no code for."""
+    for pt in points:
+        ran = system.route(pt)
+        if ran != route:
+            raise ValueError(f"point {pt.params} would run on the {ran!r} route, not the traffic's {route!r}")
+        gaps = reference.lacks(pt.params, pt.methods, ran)
+        if gaps:
+            raise ValueError(f"the check cannot follow point {pt.params} on the {ran!r} route: "
+                             f"perfbench/reference/ has no code for {'; '.join(gaps)}")
 
 
 def answer_faults(pt: Point, answers: Dict[str, np.ndarray]) -> Tuple[int, int]:

@@ -1,4 +1,4 @@
-"""The plain reference of a fused-route Monte-Carlo point.
+"""The plain reference of a Monte-Carlo point on the fused or the tracked route.
 
 Plain PyTorch, in float32 with every product in full float32 (TF32 off), or
 with ``tf32=True`` the same with every product's operands rounded to TF32:
@@ -8,7 +8,7 @@ the program made: it draws the point's random numbers itself from
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Mapping
+from typing import Dict, Iterable, List, Mapping, Optional
 
 import torch
 
@@ -17,13 +17,43 @@ from perfbench.reference.frontend import Products, draw, frontend, oracle_rank
 
 ANGLES = "proposed_angles"  # the method that runs Algorithm 3's oracle support schedule
 METHODS = ("proposed", ANGLES)
+# the program's routes whose solve is this reference's: the tracked SVT with one Jacobi round an iteration
+ROUTES = ("fused", "tracked")
+COMBINERS = ("ZC", "fft", "ps")
+
+
+def lacks(point: Mapping, methods: Iterable[str] = (), route: Optional[str] = None) -> List[str]:
+    """What the reference would need to compute ``methods`` of ``point`` on
+    ``route`` (None: any of ``ROUTES``) and has no code for; empty where it
+    computes them."""
+    gaps = []
+    if route is not None and route not in ROUTES:
+        gaps.append(f"the {route!r} route's SVT (it has the tracked SVT of {' and '.join(map(repr, ROUTES))})")
+    gaps += [f"the method {m!r} (it has {', '.join(map(repr, METHODS))})" for m in methods if m not in METHODS]
+    if point.get("channel_quirks"):
+        gaps.append("the quirks channel (channel_quirks; it has the paper's channel)")
+    if point.get("admm_mode") != "approximate":
+        gaps.append(f"admm_mode {point.get('admm_mode')!r} (it has 'approximate')")
+    if point.get("rho_scale") != 1.0:
+        gaps.append(f"rho_scale {point.get('rho_scale')!r} (it has the recipe's rho)")
+    if point.get("track_rounds", 1) != 1:
+        gaps.append(f"track_rounds {point.get('track_rounds')!r} (it tracks with one Jacobi round an iteration)")
+    if point.get("beamformer") not in COMBINERS:
+        gaps.append(f"the combiner {point.get('beamformer')!r} (it has {', '.join(map(repr, COMBINERS))})")
+    if min(point["Mr_e"], point["T"] * point["Nt"]) % 2:
+        gaps.append("a tracked SVT of odd thin side min(Mr_e, T*Nt)")
+    return gaps
+
+
+def _require(gaps: List[str]) -> None:
+    if gaps:
+        raise ValueError("perfbench/reference/ has no code for " + "; ".join(gaps))
 
 
 def problem(point: Mapping, noise_var: float, n_mc: int, seed: int, sweep_index: int, device,
             tf32: bool = False) -> Dict[str, torch.Tensor]:
     """The point's front end: the keys of :func:`frontend.frontend`."""
-    if point.get("channel_quirks") or point.get("admm_mode") != "approximate" or point.get("rho_scale") != 1.0:
-        raise ValueError("the reference computes the paper's channel, the approximate ADMM and the recipe's rho")
+    _require(lacks(point))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return frontend(point, draw(point, noise_var, n_mc, seed, sweep_index, device), Products(tf32))
@@ -31,10 +61,7 @@ def problem(point: Mapping, noise_var: float, n_mc: int, seed: int, sweep_index:
 
 def solve(prob: Mapping[str, torch.Tensor], point: Mapping, method: str, tf32: bool = False) -> torch.Tensor:
     """The (B, Gr, L·Gt) estimate of ``method`` on ``prob``."""
-    if method not in METHODS:
-        raise ValueError(f"the reference has no method {method!r}")
-    if point.get("track_rounds", 1) != 1:
-        raise ValueError("the reference tracks with one Jacobi round an iteration")
+    _require(lacks(point, (method,)))
     return admm(prob, point["Imax"], Products(tf32), rank=prob["rank"] if method == ANGLES else None)
 
 

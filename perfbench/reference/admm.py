@@ -3,11 +3,12 @@
 The solver of ``proposed_algorithm.m`` (Algorithm 3 with an oracle support
 order, ``proposed_algorithm_angles.m``) in its approximate mode: one exact
 steepest-descent step on the sparse code per iteration.  Its nuclear-norm
-prox is the tracked SVT that the measured route runs: the eigenbasis U of
+prox is the tracked SVT that the measured routes run: the eigenbasis U of
 the thin-side Gram is carried from one iteration to the next and refreshed
 by one round of the parallel (round-robin) Jacobi ordering a call; the
-singular values are the row norms of P = Uᴴ·W after the round.  Each round's
-rotations are applied here as a dense unitary matrix.
+singular values are the row norms of P = Uᴴ·W after the round.  Where N > M
+it runs on the transpose, SVT(Wᵀ)ᵀ = SVT(W), so that U is always of the thin
+side.  Each round's rotations are applied here as a dense unitary matrix.
 """
 from __future__ import annotations
 
@@ -53,8 +54,12 @@ def jacobi_round(U: torch.Tensor, P: torch.Tensor, pairs, mm: Products):
 
 
 def tracked_svt(W: torch.Tensor, tau: torch.Tensor, U: torch.Tensor, pairs, mm: Products):
-    """(shrunk W, refreshed U) for (B, N, M) W with N ≤ M; a W with a
-    non-finite entry counts as zero (``svt.m``'s guard)."""
+    """(shrunk W, refreshed U) for (B, N, M) W, U of the thin side
+    min(N, M); where N > M on the transpose.  A W with a non-finite entry
+    counts as zero (``svt.m``'s guard)."""
+    if W.shape[-2] > W.shape[-1]:
+        Y, U = tracked_svt(W.mT, tau, U, pairs, mm)
+        return Y.mT, U
     finite = (torch.isfinite(W.real) & torch.isfinite(W.imag)).all(dim=-1, keepdim=True).all(dim=-2, keepdim=True)
     W = torch.where(finite, W, torch.zeros_like(W))
     U, P = jacobi_round(U, mm(U.mH, W), pairs, mm)
@@ -82,16 +87,17 @@ def admm(prob: Mapping[str, torch.Tensor], imax: int, mm: Products, rank: Option
     thr_Y = prob["tau_Y"] / prob["rho"]
     thr_S = prob["tau_S"] / prob["rho"]
     batch, N, M = Y_obs.shape
-    if N > M or N % 2:
-        raise ValueError("the tracked SVT here takes an even N <= M")
+    thin = min(N, M)
+    if thin % 2:
+        raise ValueError("the tracked SVT here takes an even thin side min(N, M)")
     Gr, K = A.shape[-1], B.shape[-2]
     AhA, BBh = mm(A.mH, A), mm(B, B.mH)
-    rounds = round_robin(N)
+    rounds = round_robin(thin)
     X = V1 = V2 = C = torch.zeros_like(Y_obs)
     S = v = torch.zeros((batch, Gr, K), dtype=Y_obs.dtype, device=Y_obs.device)
-    U = torch.eye(N, dtype=Y_obs.dtype, device=Y_obs.device).expand(batch, N, N)
+    U = torch.eye(thin, dtype=Y_obs.dtype, device=Y_obs.device).expand(batch, thin, thin)
     for i in range(imax):
-        Y, U = tracked_svt(X - V1 / rho, thr_Y, U, rounds[i % (N - 1)], mm)
+        Y, U = tracked_svt(X - V1 / rho, thr_Y, U, rounds[i % (thin - 1)], mm)
         X = (V1 + rho * Y + Y_obs + V2 + rho * C + rho * mm(mm(A, S), B)) / (Omega + 2.0 * rho)
         Kmat = X - V2 / rho - C
         g = mm(mm(A.mH, Kmat), B.mH) - mm(mm(AhA, v), BBh)

@@ -2,11 +2,22 @@
 
 :class:`Port` is the measured program, ``jstsp19_torch``: the window drives
 its per-point entry ``harness.runner.run_point``; the correctness check takes
-a point's front end and estimates from the same calls that
-``harness.pipeline.fused_point_errors`` makes (``proposed_problem``, then
-``kernels.admm_fused.fused_tracked_admm``).  :class:`Control` answers the
-same three calls from the reference with TF32 products, to show that the
-check fails it.
+a point's front end and estimates from the calls that ``run_point`` makes on
+the point's route (``harness.runner.svt_route``, decided from its shapes):
+
+- ``fused``: those of ``harness.pipeline.fused_point_errors``,
+  ``proposed_problem`` and then ``kernels.admm_fused.fused_tracked_admm``;
+- ``tracked``: those of ``harness.pipeline.realization_errors`` for the
+  proposed methods, ``point_draws`` and ``_proposed_frontend``, and then
+  ``proposed_admm`` or ``proposed_admm_angles`` with the point's tracked-SVT
+  settings, each looked up in ``harness.pipeline`` at the call, as
+  ``realization_errors`` looks them up.
+
+The other routes (``eigh``, ``jacobi``) have no reference to be held to, and
+``bench.run_cell`` refuses them before any point runs.  :class:`Control`
+answers the same calls from the reference with TF32 products, to show that
+the check fails it; the reference's solve is the same on both routes, so the
+control takes the traffic's route as it stands.
 """
 from __future__ import annotations
 
@@ -43,20 +54,40 @@ class Port:
                                       device=self.device)
 
     def problem(self, pt: Point) -> Dict[str, torch.Tensor]:
+        """The point's front end under the check's keys (subY, Omega, A, B,
+        tau_Y, tau_S, rho, Zbar, rank), and on the tracked route the oracle
+        order too, for the solve."""
         from jstsp19_torch.core import prng
         from jstsp19_torch.harness import pipeline
 
+        pc = self.config(pt)
         gens = prng.realization_generators(self.seed, pt.k, self.device)
-        return pipeline.proposed_problem(gens, self.config(pt), pt.noise_var, pt.n_mc)
+        if self.route(pt) == "fused":
+            return pipeline.proposed_problem(gens, pc, pt.noise_var, pt.n_mc)
+        draws = pipeline.point_draws(gens, pc, pt.noise_var, pt.n_mc)
+        ch, obs, A, B, tau_Y, tau_S, rho = pipeline._proposed_frontend(gens, pc, pt.noise_var, pt.n_mc, draws=draws)
+        order = pipeline._oracle_order(ch.Zbar)
+        rank = pipeline.support_rank_from_order(order, pc.Gr * pc.L * pc.Gt).reshape(ch.Zbar.shape)
+        return dict(subY=obs.Y, Omega=obs.Omega, A=A, B=B, tau_Y=tau_Y, tau_S=tau_S, rho=rho, Zbar=ch.Zbar,
+                    rank=rank, order=order)
 
     def solve(self, pt: Point, prob: Dict[str, torch.Tensor], method: str) -> torch.Tensor:
+        from jstsp19_torch.harness import pipeline
         from jstsp19_torch.kernels import admm_fused
 
         pc = self.config(pt)
         args = [prob[key] for key in ("subY", "Omega", "A", "B", "tau_Y", "tau_S", "rho")]
-        rank = prob["rank"] if method == reference.ANGLES else None
-        S, _ = admm_fused.fused_tracked_admm(*args, Imax=pc.Imax, track_rounds=pc.track_rounds, support_rank=rank)
-        return S
+        angles = method == reference.ANGLES
+        if self.route(pt) == "fused":
+            S, _ = admm_fused.fused_tracked_admm(*args, Imax=pc.Imax, track_rounds=pc.track_rounds,
+                                                 support_rank=prob["rank"] if angles else None)
+            return S
+        subY, Omega, A, B, tau_Y, tau_S, rho = args
+        kw = dict(mode=pc.admm_mode, svt_method="tracked", track_rounds=pc.track_rounds,
+                  track_precision=pc.track_precision)
+        if angles:
+            return pipeline.proposed_admm_angles(subY, Omega, prob["order"], A, B, pc.Imax, tau_Y, tau_S, rho, **kw).S
+        return pipeline.proposed_admm(subY, Omega, A, B, pc.Imax, tau_Y, tau_S, rho, **kw).S
 
 
 class Control:

@@ -28,3 +28,13 @@ def tiny_cell():
                        sweep={"snr_db": [-6, 0, 6]})
     cell.traffic = dict(cell.traffic, n_mc=4)
     return cell
+
+
+@pytest.fixture
+def tiny_tracked_cell(tiny_cell):
+    """The tiny cell at T = 3, so that N = Mr_e = 8 > M = T·Nt = 6: every point
+    runs on the tracked route, the SVT on the transpose."""
+    tiny_cell.name = "tiny_tracked"
+    tiny_cell.config["point"]["T"] = 3
+    tiny_cell.traffic = dict(tiny_cell.traffic, svt_method="tracked")
+    return tiny_cell

@@ -1,5 +1,8 @@
-"""Whole runs of a small cell: a sound run is correct, the control and each
-fault the cell can have are not, and a run without a card prints nothing."""
+"""Whole runs of a small cell on each route: a sound run is correct, the
+control and each fault the cell can have are not, a traced run records the
+route's spans, a cell the reference cannot check is refused before any point
+runs, and a run without a card prints nothing."""
+import collections
 import json
 import os
 import pathlib
@@ -11,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from perfbench import bench, trace
+from perfbench import bench, cells, trace
 from perfbench.system import Control, Port
+from perfbench.traffic import Schedule
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 SEED = 2**31 + 12345
@@ -92,6 +96,132 @@ def test_a_fault_makes_the_run_not_correct(tiny_cell, monkeypatch, fault):
     fault(monkeypatch)
     result = run(tiny_cell, Port)
     assert not result["correct"], result["checks"]
+
+
+def test_a_sound_run_on_the_tracked_route_is_correct(tiny_tracked_cell):
+    """N > M: the window, the program's side of the check and the reference
+    all take the tracked route, the SVT on the transpose."""
+    schedule = Schedule(tiny_tracked_cell.config, tiny_tracked_cell.traffic)
+    assert {Port("cpu", SEED).route(pt) for pt in schedule.warmups()} == {"tracked"}
+    result = run(tiny_tracked_cell, Port)
+    assert result["correct"], result["checks"]
+    assert result["failed"] == 0 and result["attempted"] % tiny_tracked_cell.traffic["n_mc"] == 0
+
+
+def test_the_control_is_not_correct_on_the_tracked_route(tiny_tracked_cell):
+    result = run(tiny_tracked_cell, Control)
+    assert not result["correct"], result["checks"]
+
+
+@pytest.mark.cuda
+def test_a_traced_run_on_the_tracked_route_on_the_card(tiny_tracked_cell):
+    """The tracked route's kernels on the card: correct, its spans read, the fused kernel's roofline silent, and
+    the control not correct."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    result = bench.run_cell(tiny_tracked_cell, Port("cuda", SEED), SEED, 0.3, True, time.time())
+    assert result["correct"], result["checks"]
+    assert {"frontend_ms", "device_idle_pct"} <= set(result["metrics"])
+    assert "fused_admm_roofline" not in result["metrics"]
+    assert 0 < result["device"]["busy_s"] <= result["device"]["window_s"]
+    assert not run(tiny_tracked_cell, Control, "cuda")["correct"]
+
+
+def _tracked_state_unchanged(monkeypatch):
+    """The tracked solve returns its starting state: S = 0."""
+    from jstsp19_torch.harness import pipeline
+    from jstsp19_torch.solvers.admm import AdmmResult
+
+    def unchanged(at):  # where A lies among the arguments after subY
+        def solve(subY, *args, **kwargs):
+            A, B = args[at], args[at + 1]
+            S = torch.zeros(subY.shape[0], A.shape[-1], B.shape[-2], dtype=subY.dtype)
+            return AdmmResult(S=S, Y=subY, convergence=None)
+        return solve
+
+    monkeypatch.setattr(pipeline, "proposed_admm", unchanged(1))
+    monkeypatch.setattr(pipeline, "proposed_admm_angles", unchanged(2))
+
+
+def _tracked_half_the_batch(monkeypatch):
+    """Each tracked point solves half of its realizations and answers for those."""
+    from jstsp19_torch.harness import runner
+
+    whole = runner.realization_errors
+
+    def half(gens, pc, nv, batch, H_ext=None, rows=None, **kwargs):
+        return whole(gens, pc, nv, batch, H_ext=H_ext, rows=slice(0, batch // 2), **kwargs)
+
+    monkeypatch.setattr(runner, "realization_errors", half)
+
+
+@pytest.mark.parametrize("fault", [_tracked_state_unchanged, _tracked_half_the_batch, _answer_altered])
+def test_a_fault_on_the_tracked_route_makes_the_run_not_correct(tiny_tracked_cell, monkeypatch, fault):
+    fault(monkeypatch)
+    result = run(tiny_tracked_cell, Port)
+    assert not result["correct"], result["checks"]
+
+
+@pytest.mark.parametrize("change", [{"methods": ["proposed", "vamp"]}, {"svt_method": "eigh"}])
+def test_a_cell_the_reference_cannot_check_is_refused_before_any_point_runs(tiny_tracked_cell, monkeypatch,
+                                                                            change):
+    ran = []
+    monkeypatch.setattr(Port, "run_point", lambda self, pt: ran.append(pt))
+    tiny_tracked_cell.traffic.update(change)
+    with pytest.raises(ValueError, match="perfbench/reference/ has no code for"):
+        run(tiny_tracked_cell, Port)
+    assert ran == []
+
+
+class _HostEvent:
+    """``torch.cuda.Event`` on the host's clock, for a traced stretch on the CPU."""
+
+    def __init__(self, enable_timing=False):
+        self.t = None
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, end):
+        return 1e3 * (end.t - self.t)
+
+
+SOLVES = ("fused_admm", "tracked_admm")
+
+
+@pytest.mark.parametrize("cell,names", [
+    ("tiny_cell", {"frontend": 2, "fused_admm": 4}),
+    ("tiny_tracked_cell", {"draws": 2, "frontend": 2, "tracked_admm": 4}),
+])
+def test_spans_follow_the_route_and_restore_the_program(request, monkeypatch, cell, names):
+    """Two points under ``trace.spans``, with the card's synchronisation and
+    events on the host: each route records its own spans, the shapes of each
+    solve, and leaves the program's functions as it found them."""
+    from jstsp19_torch.harness import pipeline
+    from jstsp19_torch.kernels import admm_fused
+
+    cell = request.getfixturevalue(cell)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *args: None)
+    monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
+    wrapped = [(pipeline, name) for name in ("proposed_problem", "point_draws", "_proposed_frontend",
+                                             "proposed_admm", "proposed_admm_angles")]
+    wrapped.append((admm_fused, "fused_tracked_admm"))
+    before = [getattr(module, name) for module, name in wrapped]
+    schedule = Schedule(cell.config, cell.traffic)
+    port, spans = Port("cpu", SEED), []
+    with trace.spans(spans):
+        for pt, _ in zip(schedule.window(), range(2)):
+            port.run_point(pt)
+    assert [getattr(module, name) for module, name in wrapped] == before
+    assert collections.Counter(s.name for s in spans) == names
+    p = cell.config["point"]
+    shapes = dict(B=cell.traffic["n_mc"], N=p["Mr_e"], M=p["T"] * p["Nt"], Gr=p["Gr"], K=p["L"] * p["Gt"],
+                  Imax=p["Imax"])
+    solves = [s.attrs for s in spans if s.name in SOLVES]
+    assert solves == [dict(shapes, rank=False), dict(shapes, rank=True)] * 2
+    record = bench.Record(0.0, 1.0, [], spans, None)
+    assert cells.reader("frontend_ms")(record) > 0
+    assert (cells.reader("fused_admm_roofline")(record) is None) == ("fused_admm" not in names)
 
 
 def test_reduce_trace_takes_the_union_of_device_intervals_within_the_stretch():

@@ -1,13 +1,25 @@
 """What a ``--trace 1`` run reads: the benchmark's own spans, and the device trace.
 
-:func:`spans` wraps, for as long as it is open, the two calls that a fused
-point makes into its layers, as module attributes of the program, so that
-``run_point`` goes through the wrappers:
+:func:`spans` wraps, for as long as it is open, the calls that a point
+makes into its layers on the fused and on the tracked route, as module
+attributes of the program, so that ``run_point`` goes through the wrappers,
+and restores them on exit:
 
-- ``harness.pipeline.proposed_problem`` (the front end): a host-clock span
-  between two synchronisations, named ``frontend``;
-- ``kernels.admm_fused.fused_tracked_admm`` (the solve): two CUDA events
-  around the call and the shapes it was given, named ``fused_admm``.
+- the front end, a host-clock span between two synchronisations: on the
+  fused route ``harness.pipeline.proposed_problem``, named ``frontend``; on
+  the tracked route ``harness.pipeline.point_draws``, named ``draws``, and
+  then ``harness.pipeline._proposed_frontend`` (the dictionaries and the
+  hyper-parameters of the draws), named ``frontend``.  A wrapped call made
+  inside another one (the fused front end's own draws, where it runs
+  eagerly) is the outer span's;
+- the solve, two CUDA events around the call and the shapes it was given
+  (B, N, M, Gr, K, Imax and whether it takes the oracle support ``rank``):
+  ``kernels.admm_fused.fused_tracked_admm``, named ``fused_admm``, and on
+  the tracked route ``harness.pipeline.proposed_admm`` and
+  ``proposed_admm_angles``, named ``tracked_admm``.
+
+On a fused point the tracked route's three record nothing, and on a
+tracked point the fused route's two are not called.
 
 :func:`device_stretch` runs a stretch of points under ``torch.profiler`` and
 reduces its trace to the union of the device's kernel, copy and set
@@ -48,43 +60,70 @@ def spans(out: List[Span]):
     from jstsp19_torch.harness import pipeline
     from jstsp19_torch.kernels import admm_fused
 
-    frontend_fn, solve_fn = pipeline.proposed_problem, admm_fused.fused_tracked_admm
-    signature = inspect.signature(solve_fn)
-    pending: List[Tuple[torch.cuda.Event, torch.cuda.Event, Dict[str, object]]] = []
+    pending: List[Tuple[str, torch.cuda.Event, torch.cuda.Event, Dict[str, object]]] = []
+    depth = [0]  # host spans open: a call inside another host span's call is the outer one's
 
-    @functools.wraps(frontend_fn)
-    def frontend(*args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        result = frontend_fn(*args, **kwargs)
-        torch.cuda.synchronize()
-        out.append(Span("frontend", time.perf_counter() - t0, {}))
-        return result
+    def host(name, fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if depth[0]:
+                return fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            depth[0] += 1
+            try:
+                result = fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+            torch.cuda.synchronize()
+            out.append(Span(name, time.perf_counter() - t0, {}))
+            return result
+        return wrapper
 
-    @functools.wraps(solve_fn)
-    def solve(*args, **kwargs):
-        bound = signature.bind(*args, **kwargs)
-        bound.apply_defaults()
-        a = bound.arguments
-        Bt, N, M = a["subY"].shape
-        attrs = dict(B=Bt, N=N, M=M, Gr=a["A"].shape[-1], K=a["B"].shape[-2], Imax=a["Imax"],
-                     rank=a["support_rank"] is not None)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        result = solve_fn(*args, **kwargs)
-        end.record()
-        pending.append((start, end, attrs))
-        return result
+    def timed(name, fn, ranked):
+        """CUDA events around each call of the solve ``fn``; ``ranked(args)``:
+        whether the call takes the oracle support."""
+        signature = inspect.signature(fn)
 
-    pipeline.proposed_problem, admm_fused.fused_tracked_admm = frontend, solve
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            bound = signature.bind(*args, **kwargs)
+            bound.apply_defaults()
+            a = bound.arguments
+            Bt, N, M = a["subY"].shape
+            attrs = dict(B=Bt, N=N, M=M, Gr=a["A"].shape[-1], K=a["B"].shape[-2], Imax=a["Imax"], rank=ranked(a))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = fn(*args, **kwargs)
+            end.record()
+            pending.append((name, start, end, attrs))
+            return result
+        return wrapper
+
+    def given(a):
+        return a["support_rank"] is not None
+
+    wrappers = {
+        (pipeline, "proposed_problem"): host("frontend", pipeline.proposed_problem),
+        (pipeline, "point_draws"): host("draws", pipeline.point_draws),
+        (pipeline, "_proposed_frontend"): host("frontend", pipeline._proposed_frontend),
+        (admm_fused, "fused_tracked_admm"): timed("fused_admm", admm_fused.fused_tracked_admm, given),
+        (pipeline, "proposed_admm"): timed("tracked_admm", pipeline.proposed_admm, given),
+        (pipeline, "proposed_admm_angles"): timed("tracked_admm", pipeline.proposed_admm_angles, lambda a: True),
+    }
+    for (module, name), wrapper in wrappers.items():
+        setattr(module, name, wrapper)
     try:
         yield
     finally:
-        pipeline.proposed_problem, admm_fused.fused_tracked_admm = frontend_fn, solve_fn
-        # the function counts its launches on the name it is bound to, the wrapper while it was
-        solve_fn.launches = solve.launches
+        for (module, name), wrapper in wrappers.items():
+            fn = wrapper.__wrapped__
+            setattr(module, name, fn)
+            # a function that counts on the name it is bound to (``fused_tracked_admm.launches``) counted on the
+            # wrapper while it was
+            fn.__dict__.update((k, v) for k, v in wrapper.__dict__.items() if k != "__wrapped__")
         torch.cuda.synchronize()
-        out.extend(Span("fused_admm", s.elapsed_time(e) / 1e3, attrs) for s, e, attrs in pending)
+        out.extend(Span(name, s.elapsed_time(e) / 1e3, attrs) for name, s, e, attrs in pending)
 
 
 @dataclasses.dataclass
