@@ -15,16 +15,29 @@ range out, which would cost more than the rest of the span.
 The spans of a fused point (``run_point``'s route 'fused'): ``point``
 (attributes ``sweep_index``, ``n_mc``, ``route``, and at its end
 ``realizations``, ``launches``, the change of ``kernels.launch_counts()``
-over the point, and ``captures`` and ``replays``, the change of
-``harness.frontend_graph.problem``'s counts) holds ``frontend``, per method
+over the point, and ``captures`` and ``replays``, the change of the CUDA
+graphs' counts, ``harness.frontend_graph.problem``'s and
+``solvers.admm_graph.solve``'s) holds ``frontend``, per method
 ``solve`` (``pack`` and ``launch`` on the card) and ``nmse``, and
 ``to_host``.  ``frontend`` holds ``draws``, ``oracle_rank`` and
 ``dictionaries`` where the front end runs eagerly (and, on the card, at a
 shape's first two points: the second captures them), ``replay`` (the CUDA
 graph of that work) where it replays, and either way ``hyperparams`` (ρ's
 eigenvalues; τ_Y, τ_S and the Gram before them are ``frontend``'s own
-eagerly and in the graph when replayed).  One thread records: the recorder
-is the process's, as the profiler is.
+eagerly and in the graph when replayed).
+
+The spans of a tracked point (route 'tracked', where N = Mr_e > M = T·Nt or
+where ``svt_method`` names it; ``harness.pipeline.realization_errors``) use
+the same names: ``point`` holds ``draws`` (``point_draws``), ``frontend``
+(``_proposed_frontend``, which holds ``dictionaries`` and
+``hyperparams``), per proposed method ``solve`` (``method``, ``route``, B,
+N, M, Gr, K, Imax; ``proposed_admm`` or ``proposed_admm_angles``) and
+``nmse``, and ``to_host``; on the card, from a solve shape's second call
+on, ``solve`` holds ``replay`` (the CUDA graph of the solve, captured at
+that second call).  Its ``launches`` counter there shows the unfused
+route's kernels: ``dict_correlation`` and ``soft_threshold`` launch once
+an iteration each, Imax times a solve, on the card, replayed or not.  One thread
+records: the recorder is the process's, as the profiler is.
 """
 from __future__ import annotations
 

@@ -225,6 +225,12 @@ def realization_errors(
     (:func:`point_draws`), and the outputs have their length.  ``draws``: the
     ``(ch, Psi, N, W, obs)`` of :func:`point_draws`, made elsewhere (another
     package's draws carried over), in place of drawing from ``gens``.
+
+    Under ``core.trace.recording()`` the draws are a ``draws`` span, the
+    proposed branch's front end a ``frontend`` span, and each proposed
+    method a ``solve`` span (its ``method``, the ``route`` and the solver's
+    shapes) and then an ``nmse`` span, as on the fused route
+    (``core/trace.py``).
     """
     _check_methods(pc)
     if pc.svt_method == "fused":
@@ -236,7 +242,8 @@ def realization_errors(
     out: Dict[str, torch.Tensor] = {}
     proposed_branch = bool({"proposed", "proposed_angles", "svt", "tssr"} & set(pc.methods))
     if draws is None:
-        draws = point_draws(gens, pc, noise_var, batch, H_ext, observe=proposed_branch, rows=rows)
+        with span("draws"):
+            draws = point_draws(gens, pc, noise_var, batch, H_ext, observe=proposed_branch, rows=rows)
     ch, Psi, N, W, _ = draws
     batch = ch.H.shape[0]
 
@@ -268,14 +275,19 @@ def realization_errors(
             out["omp_td"] = metric(omp_td(A_c, B_c, Y_c, k).x, ch.Zbar)
 
     if proposed_branch:
-        _, obs, A_p, B_p, tau_Y, tau_S, rho = _proposed_frontend(gens, pc, noise_var, batch, draws=draws)
+        with span("frontend"):
+            _, obs, A_p, B_p, tau_Y, tau_S, rho = _proposed_frontend(gens, pc, noise_var, batch, draws=draws)
         kw = dict(
             mode=pc.admm_mode, svt_method=pc.svt_method, track_rounds=pc.track_rounds,
             track_precision=pc.track_precision,
         )
+        shapes = dict(route=pc.svt_method, B=obs.Y.shape[0], N=obs.Y.shape[-2], M=obs.Y.shape[-1],
+                      Gr=A_p.shape[-1], K=B_p.shape[-2], Imax=pc.Imax)
         if "proposed" in pc.methods:
-            res = proposed_admm(obs.Y, obs.Omega, A_p, B_p, pc.Imax, tau_Y, tau_S, rho, **kw)
-            out["proposed"] = metric(res.S, ch.Zbar)
+            with span("solve", method="proposed", **shapes):
+                res = proposed_admm(obs.Y, obs.Omega, A_p, B_p, pc.Imax, tau_Y, tau_S, rho, **kw)
+            with span("nmse", method="proposed"):
+                out["proposed"] = metric(res.S, ch.Zbar)
         if {"svt", "tssr"} & set(pc.methods):
             # SVT completion of the masked observation, then LS de-mixing or
             # joint OMP with 2·nnz atoms: the SVT/TSSR baselines of the
@@ -289,10 +301,12 @@ def realization_errors(
                 S_tssr = omp_mmv(A_p, Y_svt @ pinv(B_p), min(2 * pc.num_nonzero, pc.Gr)).x
                 out["tssr"] = metric(S_tssr, ch.Zbar)
         if "proposed_angles" in pc.methods:
-            res_a = proposed_admm_angles(
-                obs.Y, obs.Omega, _oracle_order(ch.Zbar), A_p, B_p, pc.Imax, tau_Y, tau_S, rho, **kw
-            )
-            out["proposed_angles"] = metric(res_a.S, ch.Zbar)
+            with span("solve", method="proposed_angles", **shapes):
+                res_a = proposed_admm_angles(
+                    obs.Y, obs.Omega, _oracle_order(ch.Zbar), A_p, B_p, pc.Imax, tau_Y, tau_S, rho, **kw
+                )
+            with span("nmse", method="proposed_angles"):
+                out["proposed_angles"] = metric(res_a.S, ch.Zbar)
     if with_zbar:
         out["Zbar"] = ch.Zbar
     return out

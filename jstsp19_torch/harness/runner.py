@@ -25,6 +25,7 @@ from jstsp19_torch.core.config import COMPLEX_DTYPE, resolve_device
 from jstsp19_torch.harness import frontend_graph
 from jstsp19_torch.harness.pipeline import PointConfig, fused_point_errors, realization_errors
 from jstsp19_torch.kernels import admm_fused, launch_counts
+from jstsp19_torch.solvers import admm_graph
 
 FUSED_METHODS = ("proposed", "proposed_angles")
 
@@ -125,8 +126,9 @@ def run_point(
     its share and every rank returns the whole point.
 
     Under ``core.trace.recording()`` the call is a ``point`` span, with the
-    realizations it solved, the kernel launches it made and the front end's
-    CUDA-graph captures and replays (``core/trace.py``).
+    realizations it solved, the kernel launches it made and the CUDA-graph
+    captures and replays of its front end and tracked solves
+    (``core/trace.py``).
     """
     if _DISTRIBUTED["mesh"] is not None and rows is None:
         from jstsp19_torch.parallel.distributed import distributed_run_point
@@ -136,7 +138,7 @@ def run_point(
     route = svt_route(pc, with_taps=taps is not None)
     with trace.span("point", sweep_index=sweep_index, n_mc=n_mc, route=route) as point:
         launched = launch_counts() if point.on else None
-        graphed = (frontend_graph.problem.captures, frontend_graph.problem.replays) if point.on else None
+        graphed = _graph_counts() if point.on else None
         device = resolve_device(device)
         if taps is not None:
             if taps.shape[0] != n_mc:
@@ -164,9 +166,16 @@ def run_point(
         if point.on:
             point.set(realizations=n_mc if rows is None else len(range(n_mc)[rows]),
                       launches={k: n - launched[k] for k, n in launch_counts().items()},
-                      captures=frontend_graph.problem.captures - graphed[0],
-                      replays=frontend_graph.problem.replays - graphed[1])
+                      **{k: n - graphed[k] for k, n in _graph_counts().items()})
     return answers
+
+
+def _graph_counts() -> Dict[str, int]:
+    """The process's CUDA-graph captures and replays: the front end's
+    (``harness/frontend_graph.py``) and the tracked solve's
+    (``solvers/admm_graph.py``) together."""
+    return {"captures": frontend_graph.problem.captures + admm_graph.solve.captures,
+            "replays": frontend_graph.problem.replays + admm_graph.solve.replays}
 
 
 # process-wide checkpoint defaults, so the CLI can enable sweep resume

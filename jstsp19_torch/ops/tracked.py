@@ -18,6 +18,7 @@ as JAX's are there.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -90,6 +91,16 @@ def chain_product(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
         return tf32_product(a, b, 1 if mode == "tf32" else 3)
 
 
+@functools.lru_cache(maxsize=None)
+def _tables(Ns: int, device: torch.device):
+    """The round-robin schedule and its gather tables on ``device``, made
+    once a size and device: a step then copies nothing to the device, so a
+    CUDA graph can capture the solve that builds it."""
+    sched = torch.as_tensor(_round_robin_schedule(Ns), dtype=torch.long, device=device)
+    part_t, slot_t, isp_t = (torch.as_tensor(t, device=device) for t in _schedule_gather_tables(Ns))
+    return sched, part_t.long(), slot_t.long(), isp_t
+
+
 def make_tracked_svt(
     N: int, M: int, cdt=torch.complex64, track_rounds: int = 1,
     precision: str = "highest", device=None,
@@ -113,11 +124,7 @@ def make_tracked_svt(
     if Ns % 2:
         raise ValueError("tracked SVT needs an even thin dimension")
 
-    sched = torch.as_tensor(_round_robin_schedule(Ns), dtype=torch.long, device=device)
-    part_t, slot_t, isp_t = (
-        torch.as_tensor(t, device=device) for t in _schedule_gather_tables(Ns)
-    )
-    part_t, slot_t = part_t.long(), slot_t.long()
+    sched, part_t, slot_t, isp_t = _tables(Ns, torch.device(device if device is not None else "cpu"))
 
     def _rounds(U, P, start):
         for j in range(track_rounds):

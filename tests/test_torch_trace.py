@@ -1,6 +1,7 @@
 """The port's span recorder (``jstsp19_torch/core/trace.py``) and the spans of
-a fused point (``harness/runner.py::run_point`` on the route 'fused'), on
-the CPU: the span tree, its ids and intervals, the point's counters, nothing
+a fused point (``harness/runner.py::run_point`` on the route 'fused') and of
+a tracked one (the route 'tracked', where N > M sends every point), on the
+CPU: the span tree, its ids and intervals, the point's counters, nothing
 recorded with tracing off, answers bit-equal with it on and off, and the
 spans as ``user_annotation`` ranges under ``torch.profiler``."""
 import json
@@ -30,9 +31,16 @@ def _one_intra_op_thread():
     torch.set_num_threads(threads)
 
 
-def _point(svt_method="fused", rows=None):
-    pc = PointConfig(methods=("proposed", "proposed_angles"), svt_method=svt_method, **TINY)
+def _point(svt_method="fused", rows=None, **fields):
+    pc = PointConfig(methods=("proposed", "proposed_angles"), svt_method=svt_method, **dict(TINY, **fields))
     return runner.run_point(pc, 0.5, N_MC, seed=2**31 + 7, sweep_index=3, device="cpu", rows=rows)
+
+
+# (the route asked for, T): at T = 3, N = Mr_e = 8 > M = T·Nt = 6, so the fused route falls back to the tracked one;
+# at T = 6 the tracked route is asked for at N < M
+TRACKED = [("fused", 3), ("tracked", 3), ("tracked", 6)]
+TRACKED_IDS = ["fused_n_over_m", "tracked_n_over_m", "tracked_n_under_m"]
+TRACKED_CHILDREN = ("draws", "frontend", "solve", "nmse", "solve", "nmse", "to_host")
 
 
 @pytest.mark.parametrize("rows", [None, slice(1, 3)], ids=["whole", "rows"])
@@ -77,15 +85,65 @@ def test_each_point_has_its_own_id():
 
 
 def test_the_tracked_route_records_its_point_and_copy_to_the_host():
-    """The tracked route has no spans of its own beyond ``point`` and
-    ``to_host``; the front-end helpers it shares with the fused route
-    (dictionaries, hyper-parameters) keep theirs."""
+    """The tracked route records ``point`` and ``to_host``, and between them
+    its layers under the fused route's names."""
     with trace.recording() as spans:
         _point(svt_method="tracked")
     names = {s.name for s in spans}
-    assert {"point", "to_host"} <= names <= {"point", "to_host", "dictionaries", "hyperparams"}
+    assert names == {"point", "to_host", "draws", "frontend", "dictionaries", "hyperparams", "solve", "nmse"}
     (point,) = [s for s in spans if s.name == "point"]
     assert point.attrs["route"] == "tracked"
+
+
+@pytest.mark.parametrize("rows", [None, slice(1, 3)], ids=["whole", "rows"])
+@pytest.mark.parametrize("svt_method,T", TRACKED, ids=TRACKED_IDS)
+def test_a_tracked_point_records_its_span_tree(svt_method, T, rows):
+    """``point`` ⊃ ``draws``, ``frontend`` ⊃ {``dictionaries``,
+    ``hyperparams``}, ``solve`` and ``nmse`` for each method in turn, then
+    ``to_host``."""
+    with trace.recording() as spans:
+        _point(svt_method=svt_method, rows=rows, T=T)
+    by_id = {s.id: s for s in spans}
+    (point,) = [s for s in spans if s.name == "point"]
+    assert point.parent is None and point.attrs["route"] == "tracked"
+    assert point.attrs["realizations"] == (N_MC if rows is None else 2)
+    assert point.attrs["launches"] == dict.fromkeys(launch_counts(), 0)  # the CPU launches no kernel
+    children = sorted((s for s in spans if s.parent == point.id), key=lambda s: s.start_ns)
+    assert tuple(s.name for s in children) == TRACKED_CHILDREN
+    for a, b in zip(children, children[1:]):
+        assert a.end_ns <= b.start_ns
+    (frontend,) = [s for s in children if s.name == "frontend"]
+    assert sorted(s.name for s in spans if s.parent == frontend.id) == ["dictionaries", "hyperparams"]
+    assert len(spans) == len(children) + 3 and len(by_id) == len(spans)
+    for s in spans:
+        assert s.point == point.id and s.start_ns <= s.end_ns
+        if s is not point:
+            parent = by_id[s.parent]
+            assert parent.start_ns <= s.start_ns and s.end_ns <= parent.end_ns
+    shapes = dict(route="tracked", B=N_MC if rows is None else 2, N=TINY["Mr_e"], M=T * TINY["Nt"], Gr=TINY["Gr"],
+                  K=TINY["L"] * TINY["Gt"], Imax=TINY["Imax"])
+    assert [s.attrs for s in children if s.name == "solve"] == [dict(shapes, method="proposed"),
+                                                                dict(shapes, method="proposed_angles")]
+    assert [s.attrs for s in children if s.name == "nmse"] == [{"method": "proposed"}, {"method": "proposed_angles"}]
+
+
+@pytest.mark.parametrize("svt_method,T", TRACKED, ids=TRACKED_IDS)
+def test_with_tracing_off_a_tracked_point_records_nothing(svt_method, T):
+    with trace.recording() as spans:
+        pass
+    assert trace.span("solve", method="proposed", route="tracked") is trace.span("draws")
+    _point(svt_method=svt_method, T=T)
+    assert spans == [] and trace._RECORDER is None
+
+
+@pytest.mark.parametrize("svt_method,T", TRACKED, ids=TRACKED_IDS)
+def test_a_tracked_points_answers_are_bit_equal_with_tracing_on_and_off(svt_method, T):
+    off = _point(svt_method=svt_method, T=T)
+    with trace.recording() as spans:
+        on = _point(svt_method=svt_method, T=T)
+    assert spans and set(on) == set(off) == {"proposed", "proposed_angles"}
+    for m in off:
+        np.testing.assert_array_equal(on[m], off[m])
 
 
 def test_with_tracing_off_nothing_is_recorded():
@@ -144,6 +202,29 @@ def test_the_fused_point_calls_its_layers_through_their_module_attributes(monkey
     wrap(admm_fused, "fused_tracked_admm")
     _point()
     assert calls == ["proposed_problem", "fused_tracked_admm", "fused_tracked_admm"]
+
+
+@pytest.mark.parametrize("svt_method,T", TRACKED, ids=TRACKED_IDS)
+def test_the_tracked_point_calls_its_layers_through_their_module_attributes(monkeypatch, svt_method, T):
+    """The benchmark's outside spans wrap ``pipeline.point_draws``,
+    ``_proposed_frontend``, ``proposed_admm`` and ``proposed_admm_angles``:
+    a tracked point has to reach each of them, and the fused kernel never."""
+    calls = []
+
+    def wrap(module, name):
+        inner = getattr(module, name)
+
+        def wrapper(*args, **kwargs):
+            calls.append(name)
+            return inner(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, wrapper)
+
+    for name in ("proposed_problem", "point_draws", "_proposed_frontend", "proposed_admm", "proposed_admm_angles"):
+        wrap(pipeline, name)
+    wrap(admm_fused, "fused_tracked_admm")
+    _point(svt_method=svt_method, T=T)
+    assert calls == ["point_draws", "_proposed_frontend", "proposed_admm", "proposed_admm_angles"]
 
 
 def test_the_profiler_sees_each_span_as_a_user_annotation(tmp_path):
