@@ -62,13 +62,17 @@ Phases (any failure ends the run with a non-zero exit code and no result):
 13. the fused ADMM kernel against its plain version at each of the 12
     distinct shapes the fused route reaches in the seven sweep recipes
     (N = Gr = 32, (M, K) from (40, 16) to (420, 48) and (400, 64); the
-    problems of those sweep points), B=8, Imax=25, with and without a
-    support rank: max|ΔS| ≤ 2e-4·max|S| and a finite Y; each shape's plan
-    (tile width, blocks per SM, shared memory) and the compiler's line for
-    the kernel instance it runs;
-14. the kernel timed at the canonical shape for B = 1, 132 and 256 and at
-    (M, K) = (420, 48) for B=256, Imax=100: best, median and spread of 5
-    CUDA-event reps, each beside its bound;
+    problems of those sweep points), B=8, and at errorVSnrf's N > M problem
+    on the transpose (Mr=16, T=5: N = 20, M = 32, Gr = 16, K = 32, as
+    ``solvers/admm_transposed.py`` hands it over), B=8 and 10^4; Imax=25,
+    with and without a support rank: max|ΔS| ≤ 2e-4·max|S| and a finite Y;
+    each shape's plan (tile width, blocks per SM by shared memory, shared
+    memory), the kernel instance it runs (``admm_fused.instance``), the
+    blocks an SM holds on the card and the compiler's line for the instance;
+14. the kernel timed at the canonical shape for B = 1, 132 and 256, at
+    (M, K) = (420, 48) for B=256 and at errorVSnrf's transposed shape for
+    B=10^4, Imax=100: best, median and spread of 5 CUDA-event reps, each
+    beside its bound;
 15. the fourth slice, the specialized recipes: ``dict_correlation`` and
     ``soft_threshold`` against their plain versions at every shape these
     recipes give them (max|Δ| ≤ 1e-5·max|ref| and ≤ 1e-6), each with its
@@ -293,6 +297,36 @@ SWEEP_SHAPES = (
     ("errorVSnt Nt=12 (M=420, K=48)", dict(Nt=12, Gt=12, beamformer="fft")),
     ("errorVSnt Nt=16 (M=400, K=64)", dict(Nt=16, Gt=16, T=25, beamformer="fft")),
 )
+
+
+# errorVSnrf's N > M problem (plot_errorVSnrf.m:20-23 at Mr=16: N = 32 > M = 20, -5 dB), which the kernel runs on
+# the transpose (solvers/admm_transposed.py: N' = 20, M' = 32, Gr' = 16, K' = 32), at [13]'s batch and at the
+# realizations a point of the benchmark's nrf_tracked_b10000
+NRF_KERNEL = ("errorVSnrf Mr=16 T=5 on the transpose (M=32, K=32)", dict(Mr=16, T=5), NV_5DB)
+B_NRF = 10_000
+
+
+def _kernel_problem(changes, noise_var, batch, seed, dev):
+    """The fused kernel's seven operands and the oracle support rank of one
+    point's problem (``proposed_problem``); an N > M problem on the
+    transpose, as ``solvers/admm_transposed.py`` hands it to the kernel."""
+    from jstsp19_torch.core import prng
+    from jstsp19_torch.harness.pipeline import PointConfig, proposed_problem
+    from jstsp19_torch.solvers import admm_transposed
+
+    pc = PointConfig(methods=("proposed", "proposed_angles"), svt_method="fused", **changes)
+    prob = proposed_problem(prng.realization_generators(seed, 0, dev), pc, noise_var, batch)
+    if prob["subY"].shape[-2] > prob["subY"].shape[-1]:
+        prob = admm_transposed.operands(dict(prob, support_rank=prob["rank"]))
+        prob["rank"] = prob["support_rank"]
+    return [prob[k] for k in ("subY", "Omega", "A", "B", "tau_Y", "tau_S", "rho")], prob["rank"]
+
+
+def _mangled(instance: str) -> str:
+    """The template arguments of ``admm_fused.instance``'s answer as they
+    appear in the kernel's symbol (``<32, 32, 1, 0, 2>`` -> ``ILi32E...E``)."""
+    args = instance[instance.index("<") + 1:-1].split(", ")
+    return "I" + "".join(f"Li{a}E" for a in args) + "E"
 
 
 def _nbytes(*tensors) -> int:
@@ -2477,20 +2511,22 @@ def main() -> int:
                   f"median {median * 1e3:.3f} ms, spread {(max(t) - best) * 1e3:.3f} ms over {REPS} reps "
                   f"(card: {card})")
 
-    # ---- 13. the fused ADMM kernel at every fused-route sweep shape -------------------
+    # ---- 13. the fused ADMM kernel at every fused-route sweep shape and errorVSnrf's -----
     ptxas = _ptxas_report(library_path("admm_fused").with_suffix(".log").read_text())
-    for label, changes in SWEEP_SHAPES:
-        pc13 = PointConfig(methods=("proposed", "proposed_angles"), svt_method="fused", **changes)
-        prob = proposed_problem(prng.realization_generators(13, 0, dev), pc13, NOISE_VAR_0DB, B_CHECK)
-        args = [prob[k] for k in ("subY", "Omega", "A", "B", "tau_Y", "tau_S", "rho")]
+    shapes13 = [(label, changes, NOISE_VAR_0DB, B_CHECK) for label, changes in SWEEP_SHAPES]
+    shapes13 += [(NRF_KERNEL[0], NRF_KERNEL[1], NRF_KERNEL[2], batch) for batch in (B_CHECK, B_NRF)]
+    for label, changes, nv, batch in shapes13:
+        args, rank13 = _kernel_problem(changes, nv, batch, 13, dev)
         _, N13, M13 = args[0].shape
         Gr13, K13 = args[2].shape[-1], args[3].shape[-2]
         plan = admm_fused.plan(N13, M13, Gr13, K13)
-        inst = "ILi32ELi32ELi1E" if (N13, Gr13) == (32, 32) else "ILi0ELi0ELi0E"  # fused_admm_kernel<NT, GT, RG>
-        line = next((v for k, v in ptxas.items() if inst in k), "not found")
-        print(f"[13] {label}: N={N13} M={M13} Gr={Gr13} K={K13}: plan tile {plan.tw}, {plan.blocks_per_sm} block(s) "
-              f"per SM, {plan.smem_bytes} B shared; ptxas: {line}")
-        for rank in (None, prob["rank"]):
+        inst = admm_fused.instance(N13, Gr13, K13)
+        line = next((v for k, v in ptxas.items() if _mangled(inst) in k), "not found")
+        print(f"[13] {label} B={batch}: N={N13} M={M13} Gr={Gr13} K={K13}: plan tile {plan.tw}, "
+              f"{plan.blocks_per_sm} block(s) per SM by shared memory, {plan.smem_bytes} B shared; {inst}: "
+              f"{admm_fused.blocks_per_sm(N13, Gr13, K13, plan.smem_bytes)} block(s) per SM on the card; "
+              f"ptxas: {line}")
+        for rank in (None, rank13):
             S_k, Y_k = fused_tracked_admm(*args, Imax=IMAX_CHECK, support_rank=rank)
             S_p, _ = fused_tracked_admm_plain(*args, Imax=IMAX_CHECK, support_rank=rank)
             torch.cuda.synchronize()
@@ -2504,12 +2540,13 @@ def main() -> int:
                 raise SystemExit(f"[13] {label}: the kernel disagrees with its plain version")
     kernels[0]["max_abs_err"] = max_abs_err
 
-    # ---- 14. the fused ADMM kernel timed at four batch sizes and shapes ---------------
-    for label, changes, batch in (("canonical", {}, 1), ("canonical", {}, 132), ("canonical", {}, B_MAIN),
-                                  ("errorVSnt Nt=12 (M=420, K=48)", dict(Nt=12, Gt=12, beamformer="fft"), B_MAIN)):
-        pc14 = PointConfig(methods=("proposed",), svt_method="fused", **changes)
-        prob = proposed_problem(prng.realization_generators(0, 0, dev), pc14, NOISE_VAR_0DB, batch)
-        args = [prob[k] for k in ("subY", "Omega", "A", "B", "tau_Y", "tau_S", "rho")]
+    # ---- 14. the fused ADMM kernel timed at five batch sizes and shapes ---------------
+    for label, changes, nv, batch in (("canonical", {}, NOISE_VAR_0DB, 1), ("canonical", {}, NOISE_VAR_0DB, 132),
+                                      ("canonical", {}, NOISE_VAR_0DB, B_MAIN),
+                                      ("errorVSnt Nt=12 (M=420, K=48)", dict(Nt=12, Gt=12, beamformer="fft"),
+                                       NOISE_VAR_0DB, B_MAIN),
+                                      (*NRF_KERNEL, B_NRF)):
+        args, _ = _kernel_problem(changes, nv, batch, 0, dev)
         Bt, N14, M14 = args[0].shape
         Gr14, K14 = args[2].shape[-1], args[3].shape[-2]
         t, _ = cuda_event_times(lambda r: fused_tracked_admm(*args, Imax=IMAX_MAIN), REPS)
@@ -2518,7 +2555,8 @@ def main() -> int:
         bound = _bound(_nbytes(*args) + Bt * (Gr14 * K14 + N14 * M14) * 8, flops)
         print(f"[14] {label} B={Bt}, Imax={IMAX_MAIN}: best {t[0]:.3f} ms, median {t[len(t) // 2]:.3f} ms, "
               f"spread {t[-1] - t[0]:.3f} ms over {REPS} reps; bound {bound[0]:.3f} ms ({bound[1]}, "
-              f"{flops / 1e9:.3f} GFLOP), {100 * bound[0] / t[0]:.1f}% of it (card: {card})")
+              f"{flops / 1e9:.3f} GFLOP), {100 * bound[0] / t[0]:.1f}% of it; {admm_fused.instance(N14, Gr14, K14)} "
+              f"(card: {card})")
 
     # ---- 15. the fourth slice: the specialized recipes through the CLI ---------------
     special = _special_recipes(root, dev, card, cli, dict_correlation, dict_correlation_plain, dictionary,

@@ -15,9 +15,10 @@ range out, which would cost more than the rest of the span.
 The spans of a fused point (``run_point``'s route 'fused'): ``point``
 (attributes ``sweep_index``, ``n_mc``, ``route``, and at its end
 ``realizations``, ``launches``, the change of ``kernels.launch_counts()``
-over the point, and ``captures`` and ``replays``, the change of the CUDA
+over the point, ``captures`` and ``replays``, the change of the CUDA
 graphs' counts, ``harness.frontend_graph.problem``'s and
-``solvers.admm_graph.solve``'s) holds ``frontend``, per method
+``solvers.admm_graph.solve``'s, and ``transposed``, the change of
+``solvers.admm_transposed.solve.calls``) holds ``frontend``, per method
 ``solve`` (``pack`` and ``launch`` on the card) and ``nmse``, and
 ``to_host``.  ``frontend`` holds ``draws``, ``oracle_rank`` and
 ``dictionaries`` where the front end runs eagerly (and, on the card, at a
@@ -32,11 +33,15 @@ the same names: ``point`` holds ``draws`` (``point_draws``), ``frontend``
 (``_proposed_frontend``, which holds ``dictionaries`` and
 ``hyperparams``), per proposed method ``solve`` (``method``, ``route``, B,
 N, M, Gr, K, Imax; ``proposed_admm`` or ``proposed_admm_angles``) and
-``nmse``, and ``to_host``; on the card, from a solve shape's second call
-on, ``solve`` holds ``replay`` (the CUDA graph of the solve, captured at
-that second call).  Its ``launches`` counter there shows the unfused
-route's kernels: ``dict_correlation`` and ``soft_threshold`` launch once
-an iteration each, Imax times a solve, on the card, replayed or not.  One thread
+``nmse``, and ``to_host``.  On the card an N > M solve with the
+kernels in float32 is one ``fused_tracked_admm`` launch on the transpose
+(``solvers/admm_transposed.py``): ``solve`` holds ``pack`` and
+``launch``, and the ``launches`` counter reads ``fused_tracked_admm`` once
+a solve and ``transposed`` one a solve.  Another tracked solve, from its
+shape's second call on, holds ``replay`` (the CUDA graph of the solve,
+captured at that second call), and its ``launches`` counter shows the
+unfused route's kernels: ``dict_correlation`` and ``soft_threshold``
+launch once an iteration each, Imax times a solve, replayed or not.  One thread
 records: the recorder is the process's, as the profiler is.
 """
 from __future__ import annotations

@@ -25,7 +25,7 @@ from jstsp19_torch.core.config import COMPLEX_DTYPE, resolve_device
 from jstsp19_torch.harness import frontend_graph
 from jstsp19_torch.harness.pipeline import PointConfig, fused_point_errors, realization_errors
 from jstsp19_torch.kernels import admm_fused, launch_counts
-from jstsp19_torch.solvers import admm_graph
+from jstsp19_torch.solvers import admm_graph, admm_transposed
 
 FUSED_METHODS = ("proposed", "proposed_angles")
 
@@ -127,7 +127,8 @@ def run_point(
 
     Under ``core.trace.recording()`` the call is a ``point`` span, with the
     realizations it solved, the kernel launches it made and the CUDA-graph
-    captures and replays of its front end and tracked solves
+    captures and replays of its front end and tracked solves, and the
+    tracked solves the fused kernel answered on the transpose
     (``core/trace.py``).
     """
     if _DISTRIBUTED["mesh"] is not None and rows is None:
@@ -171,11 +172,13 @@ def run_point(
 
 
 def _graph_counts() -> Dict[str, int]:
-    """The process's CUDA-graph captures and replays: the front end's
+    """The process's CUDA-graph captures and replays, the front end's
     (``harness/frontend_graph.py``) and the tracked solve's
-    (``solvers/admm_graph.py``) together."""
+    (``solvers/admm_graph.py``) together, and its tracked solves answered
+    by the fused kernel on the transpose (``solvers/admm_transposed.py``)."""
     return {"captures": frontend_graph.problem.captures + admm_graph.solve.captures,
-            "replays": frontend_graph.problem.replays + admm_graph.solve.replays}
+            "replays": frontend_graph.problem.replays + admm_graph.solve.replays,
+            "transposed": admm_transposed.solve.calls}
 
 
 # process-wide checkpoint defaults, so the CLI can enable sweep resume

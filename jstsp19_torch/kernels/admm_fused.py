@@ -6,8 +6,12 @@ thread block per realization with the iteration loop inside the block and
 streams the (N, M) and (K, M) operands through shared memory in column
 tiles; its source note says what bounds it and what the design does about
 that.  :func:`plan` picks the tile width and says how many blocks share an
-SM.  The plain version (:func:`fused_tracked_admm_plain`) is the port's
-``proposed_admm(svt_method='tracked')`` over the batch.
+SM; on the card :func:`instance` names the kernel instance that runs a
+shape and :func:`blocks_per_sm` reads how many of its blocks an SM holds.
+The plain version (:func:`fused_tracked_admm_plain`) is the port's
+``proposed_admm(svt_method='tracked')`` over the batch.  The kernel takes
+N ≤ M; ``solvers/admm_transposed.py`` hands it N > M problems on the
+transpose.
 
 :func:`fused_tracked_admm` takes the plain version for CPU tensors only; for
 CUDA tensors it launches the kernel or raises.  ``fused_tracked_admm.launches``
@@ -26,7 +30,6 @@ from jstsp19_torch.core.config import use_full_fp32
 from jstsp19_torch.core.trace import span
 from jstsp19_torch.kernels.build import SMEM_LIMIT_BYTES, check_tensor as _check, current_stream, raise_on_launch_error
 from jstsp19_torch.ops.jacobi import _round_robin_schedule
-from jstsp19_torch.solvers.admm import proposed_admm
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,8 +46,12 @@ def _library(extra_flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.fused_tracked_admm_launch.restype = ctypes.c_int
     lib.fused_tracked_admm_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.fused_tracked_admm_smem_bytes.restype = ctypes.c_longlong
-    lib.fused_tracked_admm_registers.argtypes = [ctypes.c_int] * 2
+    lib.fused_tracked_admm_registers.argtypes = [ctypes.c_int] * 3
     lib.fused_tracked_admm_registers.restype = ctypes.c_int
+    lib.fused_tracked_admm_instance.argtypes = [ctypes.c_int] * 3
+    lib.fused_tracked_admm_instance.restype = ctypes.c_char_p
+    lib.fused_tracked_admm_blocks_per_sm.argtypes = [ctypes.c_int] * 4
+    lib.fused_tracked_admm_blocks_per_sm.restype = ctypes.c_int
     lib.fused_tracked_admm_phase_names.restype = ctypes.c_char_p
     lib.fused_tracked_admm_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.fused_tracked_admm_phase_cycles.restype = ctypes.c_int
@@ -96,7 +103,9 @@ def fits(N: int, M: int, Gr: int, K: int) -> bool:
 
 
 def plan(N: int, M: int, Gr: int, K: int) -> Plan:
-    """Two blocks to an SM where their shared memory fits, else one.  Raises,
+    """Two blocks to an SM where their shared memory fits, else one (every
+    kernel instance's launch bounds leave registers for two; one may leave
+    room for more, as :func:`blocks_per_sm` reads on the card).  Raises,
     with the bytes, for shapes whose operands kept whole (the N x N, Gr x K
     and K x K ones) are too large for a block (see :func:`fits`)."""
     smem = 4 * _layout_floats(N, Gr, K)
@@ -114,12 +123,30 @@ def smem_bytes(N: int, Gr: int, K: int) -> int:
     return int(_library().fused_tracked_admm_smem_bytes(N, Gr, K))
 
 
+def instance(N: int, Gr: int, K: int) -> str:
+    """The kernel instance that runs these sizes, as ``csrc/admm_fused.cu``
+    chooses it: ``'fused_admm_kernel<NT, GT, RG, KT, MINB>'``."""
+    return f"fused_admm_kernel<{_library().fused_tracked_admm_instance(N, Gr, K).decode()}>"
+
+
+def blocks_per_sm(N: int, Gr: int, K: int, smem: int) -> int:
+    """Blocks of that instance one SM of the current card holds at once with
+    ``smem`` bytes of dynamic shared memory each (the CUDA occupancy
+    calculator: registers, shared memory and launch bounds together)."""
+    blocks = _library().fused_tracked_admm_blocks_per_sm(N, Gr, K, smem)
+    if blocks < 0:
+        raise RuntimeError(f"fused_tracked_admm_blocks_per_sm: CUDA error {-blocks}")
+    return blocks
+
+
 def fused_tracked_admm_plain(
     subY, Omega, A, B, tau_Y, tau_S, rho, Imax=100, support_rank=None,
     track_rounds=1, support_base=10, support_step=5,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's plain PyTorch version: the batched tracked-SVT ADMM, with
     the per-op kernels off so that it stays plain PyTorch on the card."""
+    from jstsp19_torch.solvers.admm import proposed_admm  # solvers.admm imports this module
+
     res = proposed_admm(
         subY, Omega, A, B, Imax, tau_Y, tau_S, rho, support_rank=support_rank,
         support_base=support_base, support_step=support_step,

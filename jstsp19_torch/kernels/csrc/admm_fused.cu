@@ -263,20 +263,35 @@ __device__ __forceinline__ void block_mm(
   }
 }
 
-// The N x N products: 4 x 1 tiles on a 32-wide thread grid.
-template <bool CX, bool CY, class Epi>
+// The register tiles of an instance's products, from its compile-time
+// sizes (0: known at run time only).  The N x N products: 2 x 1 tiles on an
+// N-wide grid where N is fixed and its N/2 x N tiles fit the block's threads
+// (N = 20: 200 threads busy, where 4 x 1 tiles on a 32-wide grid keep 100
+// busy), else 4 x 1 tiles on a 32-wide grid.  The Gr x K products and
+// K B^H: 2 x 1 tiles on a 32-wide grid where K is fixed at 32 (a 16 x 32
+// product in one pass of all 256 threads, where a 16-wide grid takes two
+// passes of 128), else on a 16-wide one.
+template <int NT, int GT, int KT>
+struct Tiles {
+  static constexpr bool narrow = NT > 0 && NT * NT / 2 <= kThreads;
+  static constexpr int nn_ti = narrow ? 2 : 4, nn_tx = narrow ? NT : 32;
+  static constexpr int small_tx = KT == 32 ? 32 : 16;
+};
+
+// The N x N products: TI x 1 tiles on a TX-wide thread grid.
+template <int TI, int TX, bool CX, bool CY, class Epi>
 __device__ __forceinline__ void nn_mm(
     int I, int J, int kd, const float* xr, const float* xi, int sxk, int sxi,
     const float* yr, const float* yi, int syk, int syj, Epi epi) {
-  block_mm<4, 32, CX, CY, false>(I, J, kd, xr, xi, sxk, sxi, yr, yi, syk, syj, epi);
+  block_mm<TI, TX, CX, CY, false>(I, J, kd, xr, xi, sxk, sxi, yr, yi, syk, syj, epi);
 }
 
-// The Gr x K products and K B^H: 2 x 1 tiles on a 16-wide thread grid.
-template <bool CX, bool CY, class Epi>
+// The Gr x K products and K B^H: 2 x 1 tiles on a TX-wide thread grid.
+template <int TX, bool CX, bool CY, class Epi>
 __device__ __forceinline__ void small_mm(
     int I, int J, int kd, const float* xr, const float* xi, int sxk, int sxi,
     const float* yr, const float* yi, int syk, int syj, Epi epi) {
-  block_mm<2, 16, CX, CY, false>(I, J, kd, xr, xi, sxk, sxi, yr, yi, syk, syj, epi);
+  block_mm<2, TX, CX, CY, false>(I, J, kd, xr, xi, sxk, sxi, yr, yi, syk, syj, epi);
 }
 
 // W = X - V1/rho, as both passes compute it (one rounding, the same bits).
@@ -443,7 +458,7 @@ __device__ __forceinline__ void zw_rows(const Ctx& c, int n0, int j, int tw, flo
 //
 // Called by every thread; holds the barriers between its steps and ends
 // with one.  Returns whether the next W of its elements is finite.
-template <int RG>
+template <int RG, int STX>
 __device__ __forceinline__ bool column_tile(const Ctx& c, bool ok, int it, bool last_it, bool first, int m0,
                                             int tw, bool load_b, long long& t_phase) {
   static_assert(RG == 0 || RG == 1, "one group in registers, or any number one at a time");
@@ -522,7 +537,7 @@ __device__ __forceinline__ bool column_tile(const Ctx& c, bool ok, int it, bool 
   float* Lr = smem + L.L;
   float* Li = Lr + L.pL;
   const int Kd = c.K;
-  small_mm<false, true>(c.N, c.K, tw, Wr, Wi, 1, L.ldw, smem + L.Bt, smem + L.Bt + L.pBt, 1, L.ldb,
+  small_mm<STX, false, true>(c.N, c.K, tw, Wr, Wi, 1, L.ldw, smem + L.Bt, smem + L.Bt + L.pBt, 1, L.ldb,
                         [&](int n, int k, float re, float im) {
                           if (first) {
                             Lr[n * Kd + k] = re;
@@ -553,16 +568,21 @@ __device__ __forceinline__ bool column_tile(const Ctx& c, bool ok, int it, bool 
   return finite;
 }
 
-// NT, GT: N and Gr fixed at compile time (0: taken from p at run time);
-// RG: 1 for N <= 32 (one group of rows in registers), 0 for any N
-// (column_tile).  Two instances: <32, 32, 1> for the sweeps' N = Gr = 32,
-// whose index arithmetic folds into constants (1.3-1.5x faster there than
-// the same code with sizes at run time; PERF.md), and <0, 0, 0> for every
-// other shape.
-template <int NT, int GT, int RG>
-__global__ void __launch_bounds__(kThreads, 2) fused_admm_kernel(Params p) {
+// NT, GT, KT: N, Gr and K fixed at compile time (0: taken from p at run
+// time); RG: 1 for N <= 32 (one group of rows in registers), 0 for any N
+// (column_tile); MINB: the blocks an SM the registers must leave room for.
+// Three instances: <32, 32, 1, 0, 2> for the sweeps' N = Gr = 32, whose
+// index arithmetic folds into constants (1.3-1.5x faster there than the
+// same code with sizes at run time; PERF.md); <20, 16, 1, 32, 3> for
+// errorVSnrf's N > M problem on the transpose (solvers/admm_transposed.py),
+// three blocks an SM (80 registers, a few spills; 1.58x the generic
+// instance's speed there, PERF.md); and <0, 0, 0, 0, 2> for every other
+// shape.
+template <int NT, int GT, int RG, int KT, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB) fused_admm_kernel(Params p) {
+  using T = Tiles<NT, GT, KT>;
   const int N = NT ? NT : p.N, Gr = GT ? GT : p.Gr;
-  const int M = p.M, K = p.K;
+  const int M = p.M, K = KT ? KT : p.K;
   const int GK = Gr * K, half = N / 2, tid = threadIdx.x;
   const int b = blockIdx.x;
 
@@ -633,12 +653,12 @@ __global__ void __launch_bounds__(kThreads, 2) fused_admm_kernel(Params p) {
     }
 
     // ---- T = U^H (G U) -------------------------------------------------------
-    nn_mm<false, false>(N, N, N, Gr_, Gi_, 1, ldn, Ur, Ui, ldn, 1, [&](int i, int j, float re, float im) {
+    nn_mm<T::nn_ti, T::nn_tx, false, false>(N, N, N, Gr_, Gi_, 1, ldn, Ur, Ui, ldn, 1, [&](int i, int j, float re, float im) {
       E2r[i * ldn + j] = re;
       E2i[i * ldn + j] = im;
     });
     __syncthreads();
-    nn_mm<true, false>(N, N, N, Ur, Ui, ldn, 1, E2r, E2i, ldn, 1, [&](int i, int j, float re, float im) {
+    nn_mm<T::nn_ti, T::nn_tx, true, false>(N, N, N, Ur, Ui, ldn, 1, E2r, E2i, ldn, 1, [&](int i, int j, float re, float im) {
       E1r[i * ldn + j] = re;
       E1i[i * ldn + j] = im;
     });
@@ -716,7 +736,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_admm_kernel(Params p) {
       E1i[i * ldn + k] = Ui[i * ldn + k] * fsh[k];
     }
     __syncthreads();
-    nn_mm<false, true>(N, N, N, E1r, E1i, 1, ldn, Ur, Ui, 1, ldn, [&](int i, int j, float re, float im) {
+    nn_mm<T::nn_ti, T::nn_tx, false, true>(N, N, N, E1r, E1i, 1, ldn, Ur, Ui, 1, ldn, [&](int i, int j, float re, float im) {
       E2r[j * NP + i] = re;
       E2i[j * NP + i] = im;
     });
@@ -727,22 +747,22 @@ __global__ void __launch_bounds__(kThreads, 2) fused_admm_kernel(Params p) {
     finite = true;
     for (int t = 0; t < ntiles; ++t) {
       const int m0 = t * kTW, tw = min(kTW, M - m0);
-      finite = column_tile<RG>(c, ok, it, it == p.Imax - 1, t == 0, m0, tw, ntiles > 1 || it == 0, t_phase) &&
+      finite = column_tile<RG, T::small_tx>(c, ok, it, it == p.Imax - 1, t == 0, m0, tw, ntiles > 1 || it == 0, t_phase) &&
                finite;
     }
 
     // ---- r = A^H L - (A^H A) v (B B^H) ---------------------------------------
     // r in E1 as [q][k]; (A^H A) x in E2 transposed, [k][q]
-    small_mm<true, false>(Gr, K, N, Ar, Ai, Gr, 1, Lr, Li, K, 1, [&](int q, int k, float re, float im) {
+    small_mm<T::small_tx, true, false>(Gr, K, N, Ar, Ai, Gr, 1, Lr, Li, K, 1, [&](int q, int k, float re, float im) {
       E1r[q * K + k] = re;
       E1i[q * K + k] = im;
     });
-    small_mm<false, false>(Gr, K, Gr, Hr, Hi, Gr, 1, vr, vi, K, 1, [&](int q, int k, float re, float im) {
+    small_mm<T::small_tx, false, false>(Gr, K, Gr, Hr, Hi, Gr, 1, vr, vi, K, 1, [&](int q, int k, float re, float im) {
       E2r[k * Gr + q] = re;
       E2i[k * Gr + q] = im;
     });
     __syncthreads();
-    small_mm<false, false>(Gr, K, K, E2r, E2i, Gr, 1, Qr, Qi, K, 1, [&](int q, int k, float re, float im) {
+    small_mm<T::small_tx, false, false>(Gr, K, K, E2r, E2i, Gr, 1, Qr, Qi, K, 1, [&](int q, int k, float re, float im) {
       E1r[q * K + k] -= re;
       E1i[q * K + k] -= im;
     });
@@ -750,13 +770,13 @@ __global__ void __launch_bounds__(kThreads, 2) fused_admm_kernel(Params p) {
     PHASE(10)
 
     // ---- exact step: num = |r|^2, den = Re<r, (A^H A) r (B B^H)> ---------------
-    small_mm<false, false>(Gr, K, Gr, Hr, Hi, Gr, 1, E1r, E1i, K, 1, [&](int q, int k, float re, float im) {
+    small_mm<T::small_tx, false, false>(Gr, K, Gr, Hr, Hi, Gr, 1, E1r, E1i, K, 1, [&](int q, int k, float re, float im) {
       E2r[k * Gr + q] = re;
       E2i[k * Gr + q] = im;
     });
     __syncthreads();
     float num = 0.f, den = 0.f;
-    small_mm<false, false>(Gr, K, K, E2r, E2i, Gr, 1, Qr, Qi, K, 1, [&](int q, int k, float re, float im) {
+    small_mm<T::small_tx, false, false>(Gr, K, K, E2r, E2i, Gr, 1, Qr, Qi, K, 1, [&](int q, int k, float re, float im) {
       const float rr = E1r[q * K + k], ri = E1i[q * K + k];
       num = fmaf(rr, rr, fmaf(ri, ri, num));
       den = fmaf(rr, re, fmaf(ri, im, den));
@@ -779,7 +799,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_admm_kernel(Params p) {
       Si[e] = si;
     }
     __syncthreads();
-    small_mm<false, false>(N, K, Gr, Ar, Ai, 1, Gr, Sr, Si, K, 1, [&](int n, int k, float re, float im) {
+    small_mm<T::small_tx, false, false>(N, K, Gr, Ar, Ai, 1, Gr, Sr, Si, K, 1, [&](int n, int k, float re, float im) {
       ASr[k * NP + n] = re;
       ASi[k * NP + n] = im;
     });
@@ -793,9 +813,18 @@ __global__ void __launch_bounds__(kThreads, 2) fused_admm_kernel(Params p) {
   }
 }
 
+// A kernel instance and its template arguments, as written.
+struct Instance {
+  void (*kern)(Params);
+  const char* args;
+};
+#define INSTANCE(...) Instance{fused_admm_kernel<__VA_ARGS__>, #__VA_ARGS__}
+
 // The instance that runs these sizes.
-void (*instance(int N, int Gr))(Params) {
-  return N == 32 && Gr == 32 ? fused_admm_kernel<32, 32, 1> : fused_admm_kernel<0, 0, 0>;
+Instance instance(int N, int Gr, int K) {
+  if (N == 32 && Gr == 32) return INSTANCE(32, 32, 1, 0, 2);
+  if (N == 20 && Gr == 16 && K == 32) return INSTANCE(20, 16, 1, 32, 3);
+  return INSTANCE(0, 0, 0, 0, 2);
 }
 
 }  // namespace
@@ -807,16 +836,33 @@ long long fused_tracked_admm_smem_bytes(int N, int Gr, int K) {
   return (long long)Layout(N, Gr, K).total * (long long)sizeof(float);
 }
 
+// The template arguments of the instance that runs N, Gr and K, as
+// "NT, GT, RG, KT, MINB".
+const char* fused_tracked_admm_instance(int N, int Gr, int K) { return instance(N, Gr, K).args; }
+
 // Registers a thread uses (cudaFuncGetAttributes) in the instance that
-// runs N and Gr, or a negative CUDA error code.
-int fused_tracked_admm_registers(int N, int Gr) {
+// runs N, Gr and K, or a negative CUDA error code.
+int fused_tracked_admm_registers(int N, int Gr, int K) {
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, instance(N, Gr));
+  const cudaError_t err = cudaFuncGetAttributes(&a, instance(N, Gr, K).kern);
   return err == cudaSuccess ? a.numRegs : -(int)err;
 }
 
+// Blocks of the instance that runs N, Gr and K that one SM of the current
+// device holds at once with smem_bytes of dynamic shared memory each
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor: its registers, its
+// shared memory and the launch bounds together), or a negative CUDA error
+// code.
+int fused_tracked_admm_blocks_per_sm(int N, int Gr, int K, int smem_bytes) {
+  void (*kern)(Params) = instance(N, Gr, K).kern;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  int blocks = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kThreads, smem_bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
 // Phase names of the per-phase split, comma-separated, in stamp order (for
-// N = Gr = 32; in the other instance phase 4 is empty and phase 5 is
+// the RG = 1 instances; in the generic one phase 4 is empty and phase 5 is
 // Y = Z W of all rows).
 const char* fused_tracked_admm_phase_names() {
   return "T = U^H G U,Jacobi rounds,f and Z = U f U^H,tile: loads and W,tile: A S B (thread 0),"
@@ -874,7 +920,7 @@ int fused_tracked_admm_launch(
 
   const size_t smem_size = (size_t)imax2(Layout(N, Gr, K).total * (int)sizeof(float), smem_bytes);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  void (*kern)(Params) = instance(N, Gr);
+  void (*kern)(Params) = instance(N, Gr, K).kern;
   const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_size);
   if (err != cudaSuccess) return (int)err;
   kern<<<batch, kThreads, smem_size, st>>>(p);

@@ -5,7 +5,10 @@ is present.  Each holds ``solvers.admm.proposed_admm``, which runs a key's
 first call eagerly, captures the graph of that key at its second and
 replays it from then on, against ``solvers.admm._proposed_admm``, the same code run
 eagerly, bit for bit, at errorVSnrf's shapes (``plot_errorVSnrf.m:20-23``:
-Mr ∈ {4, 8, 12, 16}, T = 5; N = 32 > M = 20, the tracked route).  This file
+Mr ∈ {4, 8, 12, 16}, T = 5; N = 32 > M = 20, the tracked route) with the
+chain's products in TF32 (``track_precision='tensorfloat32'``): in float32
+these calls go to the fused kernel on the transpose
+(``solvers/admm_transposed.py``), which the graph never sees.  This file
 imports no JAX; on the GPU machine run it alone, without the JAX suite's
 conftest:
 
@@ -38,7 +41,8 @@ def cuda(monkeypatch):
 
 
 def _pc(mr):
-    return PointConfig(Mr=mr, T=5, methods=("proposed", "proposed_angles"), svt_method="tracked")
+    return PointConfig(Mr=mr, T=5, methods=("proposed", "proposed_angles"), svt_method="tracked",
+                       track_precision="tensorfloat32")
 
 
 def _problem(device, k, batch):

@@ -155,15 +155,27 @@ def test_kernel_at_one_block_and_over_a_wave(cuda, batch):
 
 
 def test_plan_matches_the_kernel_layout(cuda):
-    """The plan's shared-memory bytes are the kernel's own Layout, and each
-    kernel instance's registers leave room for two blocks an SM."""
+    """The plan's shared-memory bytes are the kernel's own Layout; each
+    kernel instance's registers leave room for the blocks its plan puts on
+    an SM, and the card holds them; errorVSnrf's transposed shape runs an
+    instance of its own, three blocks an SM."""
     for m, k in SWEEP_MK:
         assert admm_fused.smem_bytes(N, Gr, k) == 4 * admm_fused._layout_floats(N, Gr, k)
-    for n, gr, k in ((40, 36, 12), (66, 32, 16)):
+    for n, gr, k in ((40, 36, 12), (66, 32, 16), (20, 16, 32)):
         assert admm_fused.smem_bytes(n, gr, k) == 4 * admm_fused._layout_floats(n, gr, k)
-    for n, gr in ((32, 32), (66, 32)):  # the two instances
-        regs = admm_fused._library().fused_tracked_admm_registers(n, gr)
-        assert 0 < regs and 2 * admm_fused.THREADS * regs <= 65536
+    shapes = {  # (N, M, Gr, K): the instance that runs it
+        (32, 140, 32, 16): "fused_admm_kernel<32, 32, 1, 0, 2>",
+        (66, 200, 32, 16): "fused_admm_kernel<0, 0, 0, 0, 2>",
+        (20, 32, 16, 32): "fused_admm_kernel<20, 16, 1, 32, 3>",
+    }
+    for (n, m, gr, k), name in shapes.items():
+        assert admm_fused.instance(n, gr, k) == name
+        pl = admm_fused.plan(n, m, gr, k)
+        regs = admm_fused._library().fused_tracked_admm_registers(n, gr, k)
+        blocks = admm_fused.blocks_per_sm(n, gr, k, pl.smem_bytes)
+        assert 0 < regs and blocks * admm_fused.THREADS * regs <= 65536
+        assert blocks >= pl.blocks_per_sm
+    assert admm_fused.blocks_per_sm(20, 16, 32, admm_fused.smem_bytes(20, 16, 32)) == 3
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -354,20 +366,22 @@ def test_soft_threshold_rejects_what_it_does_not_take(cuda):
 
 def test_unfused_solve_runs_the_kernels(cuda):
     """The unfused ADMM at the errorVSnrf shape launches both kernels once
-    per iteration, and its NMSE matches use_kernels=False at rtol 2e-3,
-    atol 2e-4."""
+    per iteration with the eigh SVT, and the fused kernel once with the
+    tracked one (N > M, on the transpose: solvers/admm_transposed.py); each
+    NMSE matches use_kernels=False at rtol 2e-3, atol 2e-4."""
     pc = PointConfig(Mr=16, T=5, methods=("proposed",))
     prob = proposed_problem(prng.realization_generators(2, 3, cuda), pc, 10 ** -0.5, 64)
     args = [prob[k] for k in ("subY", "Omega", "A", "B")] + [IMAX] + [
         prob[k] for k in ("tau_Y", "tau_S", "rho")]
-    d0, s0 = dict_correlation.launches, fused_soft_threshold.launches
+    d0, s0, f0 = dict_correlation.launches, fused_soft_threshold.launches, fused_tracked_admm.launches
     for svt_method in ("eigh", "tracked"):
         S_on = proposed_admm(*args, svt_method=svt_method).S
         S_off = proposed_admm(*args, svt_method=svt_method, use_kernels=False).S
         torch.testing.assert_close(
             clamped_nmse(S_on, prob["Zbar"]), clamped_nmse(S_off, prob["Zbar"]), rtol=2e-3, atol=2e-4)
-    assert dict_correlation.launches - d0 == 2 * IMAX
-    assert fused_soft_threshold.launches - s0 == 2 * IMAX
+    assert dict_correlation.launches - d0 == IMAX
+    assert fused_soft_threshold.launches - s0 == IMAX
+    assert fused_tracked_admm.launches - f0 == 1
 
 
 @pytest.mark.parametrize("n", [2, 64, 4096, *(1 << k for k in range(14, 21))])

@@ -8,7 +8,9 @@ variance) the same draws go through 'eigh' and through 'tracked' at
 the truncating 3xTF32 split biased the mean) and 'tensorfloat32' (one TF32
 pass, the candidate for 'default'), for proposed, proposed_angles, svt and
 tssr (``realization_errors``) and the mc_admm family (``mc_admm`` on the
-proposed observation, LS de-mixing).  For each shape, method and precision:
+proposed observation, LS de-mixing).  The tracked solves run the chain at
+every shape (:func:`chain_only`): on the card a float32 N > M one (nrf)
+would otherwise run the fused kernel on the transpose, another algorithm.  For each shape, method and precision:
 the mean NMSE, the mean and max per-realization |ΔNMSE| against eigh and the
 paired z of the mean difference against 'highest'.
 
@@ -29,6 +31,7 @@ GEMM names its type), with the max |Δ| of each form against float32.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -45,6 +48,7 @@ from jstsp19_torch.core import prng  # noqa: E402
 from jstsp19_torch.core.metrics import clamped_nmse  # noqa: E402
 from jstsp19_torch.harness.pipeline import PointConfig, _proposed_frontend, realization_errors  # noqa: E402
 from jstsp19_torch.ops.tracked import PRODUCTS, chain_product  # noqa: E402
+from jstsp19_torch.solvers import admm_transposed  # noqa: E402
 from jstsp19_torch.solvers.lowrank import mc_admm  # noqa: E402
 from jstsp19_torch.solvers.lsq import ls_estimate  # noqa: E402
 
@@ -58,6 +62,19 @@ METHODS = ("proposed", "proposed_angles", "svt", "tssr")
 FAMILIES = METHODS + ("mc_admm",)
 PRECISIONS = ("highest", "high", "tensorfloat32")
 CANDIDATE = "tensorfloat32"  # one TF32 pass: what 'default' runs if it passes
+
+
+@contextlib.contextmanager
+def chain_only():
+    """Inside, ``proposed_admm`` sends no call to the fused kernel on the
+    transpose (``solvers/admm_transposed.py``): every tracked solve runs the
+    chain, whose precisions the protocol compares."""
+    takes = admm_transposed.takes
+    admm_transposed.takes = lambda inputs, options: False
+    try:
+        yield
+    finally:
+        admm_transposed.takes = takes
 
 
 def point_errors(pc: PointConfig, noise_var: float, n: int, seed: int, device) -> dict:
@@ -88,8 +105,9 @@ def protocol(n: int, seed: int, device) -> dict:
     for shape, (fields, nv) in SHAPES.items():
         base = PointConfig(methods=METHODS, **fields)
         eigh = point_errors(dataclasses.replace(base, svt_method="eigh"), nv, n, seed, device)
-        tracked = {p: point_errors(dataclasses.replace(base, svt_method="tracked", track_precision=p), nv, n,
-                                   seed, device) for p in PRECISIONS}
+        with chain_only():
+            tracked = {p: point_errors(dataclasses.replace(base, svt_method="tracked", track_precision=p), nv, n,
+                                       seed, device) for p in PRECISIONS}
         rows[shape] = {"noise_var": nv}
         for m in FAMILIES:
             stats = {"eigh": {"mean_nmse": float(eigh[m].mean())}}
