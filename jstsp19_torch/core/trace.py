@@ -15,12 +15,11 @@ range out, which would cost more than the rest of the span.
 The spans of a fused point (``run_point``'s route 'fused'): ``point``
 (attributes ``sweep_index``, ``n_mc``, ``route``, and at its end
 ``realizations``, ``launches``, the change of ``kernels.launch_counts()``
-over the point, ``captures`` and ``replays``, the change of the CUDA
-graphs' counts, ``harness.frontend_graph.problem``'s and
-``solvers.admm_graph.solve``'s, and ``transposed``, the change of
-``solvers.admm_transposed.solve.calls``) holds ``frontend``, per method
-``solve`` (``pack`` and ``launch`` on the card) and ``nmse``, and
-``to_host``.  ``frontend`` holds ``draws``, ``oracle_rank`` and
+over the point, ``captures`` and ``replays``, the change of
+``harness.frontend_graph.problem``'s CUDA-graph counts, and
+``transposed``, the change of ``solvers.admm_transposed.solve.calls``)
+holds ``frontend``, per method ``solve`` (``pack`` and ``launch`` on the
+card) and ``nmse``, and ``to_host``.  ``frontend`` holds ``draws``, ``oracle_rank`` and
 ``dictionaries`` where the front end runs eagerly (and, on the card, at a
 shape's first two points: the second captures them), ``replay`` (the CUDA
 graph of that work) where it replays, and either way ``hyperparams`` (ρ's
@@ -37,12 +36,11 @@ N, M, Gr, K, Imax; ``proposed_admm`` or ``proposed_admm_angles``) and
 kernels in float32 is one ``fused_tracked_admm`` launch on the transpose
 (``solvers/admm_transposed.py``): ``solve`` holds ``pack`` and
 ``launch``, and the ``launches`` counter reads ``fused_tracked_admm`` once
-a solve and ``transposed`` one a solve.  Another tracked solve, from its
-shape's second call on, holds ``replay`` (the CUDA graph of the solve,
-captured at that second call), and its ``launches`` counter shows the
-unfused route's kernels: ``dict_correlation`` and ``soft_threshold``
-launch once an iteration each, Imax times a solve, replayed or not.  One thread
-records: the recorder is the process's, as the profiler is.
+a solve and ``transposed`` one a solve.  Another tracked solve runs
+eagerly, and its ``launches`` counter shows the unfused route's kernels:
+``dict_correlation`` and ``soft_threshold`` launch once an iteration each,
+Imax times a solve.  One thread records: the recorder is the process's, as
+the profiler is.
 """
 from __future__ import annotations
 

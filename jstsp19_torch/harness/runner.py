@@ -25,7 +25,7 @@ from jstsp19_torch.core.config import COMPLEX_DTYPE, resolve_device
 from jstsp19_torch.harness import frontend_graph
 from jstsp19_torch.harness.pipeline import PointConfig, fused_point_errors, realization_errors
 from jstsp19_torch.kernels import admm_fused, launch_counts
-from jstsp19_torch.solvers import admm_graph, admm_transposed
+from jstsp19_torch.solvers import admm_transposed
 
 FUSED_METHODS = ("proposed", "proposed_angles")
 
@@ -126,10 +126,9 @@ def run_point(
     its share and every rank returns the whole point.
 
     Under ``core.trace.recording()`` the call is a ``point`` span, with the
-    realizations it solved, the kernel launches it made and the CUDA-graph
-    captures and replays of its front end and tracked solves, and the
-    tracked solves the fused kernel answered on the transpose
-    (``core/trace.py``).
+    realizations it solved, the kernel launches it made, the CUDA-graph
+    captures and replays of its front end, and the tracked solves the fused
+    kernel answered on the transpose (``core/trace.py``).
     """
     if _DISTRIBUTED["mesh"] is not None and rows is None:
         from jstsp19_torch.parallel.distributed import distributed_run_point
@@ -172,12 +171,10 @@ def run_point(
 
 
 def _graph_counts() -> Dict[str, int]:
-    """The process's CUDA-graph captures and replays, the front end's
-    (``harness/frontend_graph.py``) and the tracked solve's
-    (``solvers/admm_graph.py``) together, and its tracked solves answered
-    by the fused kernel on the transpose (``solvers/admm_transposed.py``)."""
-    return {"captures": frontend_graph.problem.captures + admm_graph.solve.captures,
-            "replays": frontend_graph.problem.replays + admm_graph.solve.replays,
+    """The process's front-end CUDA-graph captures and replays
+    (``harness/frontend_graph.py``), and its tracked solves answered by the
+    fused kernel on the transpose (``solvers/admm_transposed.py``)."""
+    return {"captures": frontend_graph.problem.captures, "replays": frontend_graph.problem.replays,
             "transposed": admm_transposed.solve.calls}
 
 

@@ -26,47 +26,30 @@ from jstsp19_torch.ops.jacobi import _round_robin_schedule, _schedule_gather_tab
 
 
 # track_precision → how the card computes P = Uᴴ·W and U·(f∘P):
-#   'fp32'    one complex64 product in full float32, TF32 off;
-#   '3xtf32'  three TF32 products over a hi/lo split of each operand (the
-#             counterpart of the TPU's 3-pass bf16 'high'), which no setting
-#             maps to any more;
-#   'tf32'    one TF32 product ('tensorfloat32' is JAX's name for it).
-# The TF32 forms run as real GEMMs of the [Re −Im; Im Re] block form, so
-# that TF32 applies whatever cuBLAS does with a complex GEMM.  'default' is
-# float32: one TF32 pass failed the eigh-oracle rule of
+#   'fp32'  one complex64 product in full float32, TF32 off;
+#   'tf32'  one TF32 product ('tensorfloat32' is JAX's name for it), run as
+#           a real GEMM of the [Re −Im; Im Re] block form, so that TF32
+#           applies whatever cuBLAS does with a complex GEMM.
+# 'default' is float32: one TF32 pass failed the eigh-oracle rule of
 # tools/torch_precision_shapes.py on an H100 (mc_admm at the canonical
 # point, max |ΔNMSE| to eigh 2.7e-3 against a 1e-3 limit; PERF.md §6).
-# 'high' is float32 too: the truncating split drops lo·lo and biased the
-# mean NMSE by about 1e-6 (paired |z| up to 16 against 'highest'), and its
-# 31 kernels took 192 µs a product pair against float32's 29 µs in 3.
+# 'high' is float32 too: its TPU counterpart, three TF32 products over a
+# truncating hi/lo split of each operand, drops lo·lo and biased the mean
+# NMSE by about 1e-6 (paired |z| up to 16 against 'highest'), and its 31
+# kernels took 192 µs a product pair against float32's 29 µs in 3.
 PRODUCTS = {"highest": "fp32", "high": "fp32", "default": "fp32", "tensorfloat32": "tf32"}
 
 
-def split_tf32(x: torch.Tensor):
-    """(hi, lo) with ``hi + lo == x`` exactly: hi keeps the sign, exponent
-    and the 10 mantissa bits a TF32 operand holds (the low 13 bits
-    cleared), lo is the remainder, itself exact in float32."""
-    hi = torch.bitwise_and(x.view(torch.int32), -8192).view(torch.float32)
-    return hi, x - hi
-
-
-def tf32_product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
-    """The complex product a·b as real products of the [Re −Im; Im Re]
-    block form: one (``passes=1``) or three (``passes=3``: hi·hi + hi·lo +
-    lo·hi over :func:`split_tf32`, the lo·lo term dropped) real products.
-    TF32 applies where the caller turned it on for CUDA float32 products;
-    elsewhere each product is float32."""
+def tf32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The complex product a·b as one real product of the [Re −Im; Im Re]
+    block form.  TF32 applies where the caller turned it on for CUDA
+    float32 products; elsewhere the product is float32."""
     a, b = a.resolve_conj(), b.resolve_conj()
     n = a.shape[-2]
     ar, ai = a.real, a.imag
     A = torch.cat((torch.cat((ar, -ai), -1), torch.cat((ai, ar), -1)), -2)
     Bm = torch.cat((b.real, b.imag), -2)
-    if passes == 1:
-        C = A @ Bm
-    else:
-        A_hi, A_lo = split_tf32(A)
-        B_hi, B_lo = split_tf32(Bm)
-        C = A_hi @ B_hi + (A_hi @ B_lo + A_lo @ B_hi)
+    C = A @ Bm
     return torch.complex(C[..., :n, :], C[..., n:, :])
 
 
@@ -88,14 +71,14 @@ def chain_product(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     if mode == "fp32" or not a.is_cuda:
         return a @ b
     with _tf32_products():
-        return tf32_product(a, b, 1 if mode == "tf32" else 3)
+        return tf32_product(a, b)
 
 
 @functools.lru_cache(maxsize=None)
 def _tables(Ns: int, device: torch.device):
     """The round-robin schedule and its gather tables on ``device``, made
-    once a size and device: a step then copies nothing to the device, so a
-    CUDA graph can capture the solve that builds it."""
+    once a size and device, so that a step makes no copy from the host to
+    the device."""
     sched = torch.as_tensor(_round_robin_schedule(Ns), dtype=torch.long, device=device)
     part_t, slot_t, isp_t = (torch.as_tensor(t, device=device) for t in _schedule_gather_tables(Ns))
     return sched, part_t.long(), slot_t.long(), isp_t

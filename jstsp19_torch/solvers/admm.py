@@ -18,7 +18,7 @@ from jstsp19_torch.kernels.dictionary import dict_correlation_plain, dict_correl
 from jstsp19_torch.kernels.softthresh import fused_soft_threshold_plain, fused_soft_threshold_routed
 from jstsp19_torch.ops.jacobi import jacobi_svt_fn
 from jstsp19_torch.ops.tracked import make_tracked_svt
-from jstsp19_torch.solvers import admm_graph, admm_transposed
+from jstsp19_torch.solvers import admm_transposed
 from jstsp19_torch.solvers.lowrank import _col, svt
 
 
@@ -135,11 +135,8 @@ def proposed_admm(
     :func:`solvers.admm_transposed.takes` runs as one launch of the fused
     kernel on the transposed problem (``solvers/admm_transposed.py``; the
     same float32 work in another summation order); its answer carries no
-    convergence log and no state.  Another tracked solve that
-    :func:`solvers.admm_graph.takes` replays, from the second call of its
-    shapes on, as one CUDA graph of the same launches
-    (``solvers/admm_graph.py``): the same bits, one launch from the host in
-    place of ≈ 139 an iteration.
+    convergence log and no state.  Every other call runs eagerly
+    (:func:`_proposed_admm`).
     """
     inputs = dict(subY=subY, Omega=Omega, A=A, B=B, tau_Y=tau_Y, tau_S=tau_S, rho=rho, support_rank=support_rank)
     options = dict(Imax=Imax, mode=mode, support_base=support_base, support_step=support_step,
@@ -148,8 +145,6 @@ def proposed_admm(
                    use_kernels=use_kernels)
     if admm_transposed.takes(inputs, options):
         return admm_transposed.solve(inputs, options)
-    if admm_graph.takes(inputs, options):
-        return admm_graph.solve(_proposed_admm, inputs, options)
     return _proposed_admm(**inputs, **options)
 
 

@@ -7,8 +7,10 @@ ADMM is the transpose of the fused kernel's plain version on the transposed
 operands, and both are near JAX's tracked ``proposed_admm`` on the same
 inputs; :func:`admm_transposed.solve` answers so (on the CPU the kernel's
 wrapper takes its plain version).  The rule that sends a call there takes
-the benchmark cell's call and declines every other.  The launch itself runs
-on the card only: ``tests/test_torch_admm_transposed_cuda.py``.
+the benchmark cell's call and declines every other, which
+``proposed_admm`` then answers from its eager body, as it answers every CPU
+call.  The launch itself runs on the card only:
+``tests/test_torch_admm_transposed_cuda.py``.
 """
 import pathlib
 import sys
@@ -17,10 +19,12 @@ import numpy as np
 import pytest
 import torch
 
+from jstsp19_torch import kernels
 from jstsp19_torch.core import prng, trace
 from jstsp19_torch.harness import pipeline, runner
 from jstsp19_torch.harness.pipeline import PointConfig
 from jstsp19_torch.kernels import admm_fused
+from jstsp19_torch.ops import tracked
 from jstsp19_torch.solvers import admm, admm_transposed
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "tools"))
@@ -33,6 +37,12 @@ OPTIONS = dict(Imax=100, mode="approximate", support_base=10, support_step=5, tr
                conv_norm="spectral", init_state=None, svt_method="tracked", track_rounds=1,
                track_precision="default", use_kernels=True)
 RTOL = 2e-4  # max|ΔS| over max|S| per realization: float32 sums in other orders (A·S·B associated otherwise)
+# the options the rule declines; "a state" stands for any warm start
+DECLINED_OPTIONS = [
+    ("use_kernels", False), ("track_precision", "tensorfloat32"), ("init_state", "a state"),
+    ("track_convergence", True), ("svt_method", "eigh"), ("svt_method", "jacobi"), ("mode", "exact")]
+# errorVSnrf's Mr = 16 point (N = 32 > M = 20) and the canonical point (N = 32 <= M = 140)
+SHAPES = {"n_over_m": dict(mr=16, T=5), "n_under_m": dict(mr=4, T=35)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -45,10 +55,11 @@ def _one_intra_op_thread():
     torch.set_num_threads(threads)
 
 
-def _inputs(mr=16, angles=False, batch=BATCH):
+def _inputs(mr=16, angles=False, batch=BATCH, T=5):
     """What ``realization_errors`` hands ``proposed_admm`` at an errorVSnrf
-    point (``plot_errorVSnrf.m:20-23``: Mr of Mr_e = 32, T = 5)."""
-    pc = PointConfig(Mr=mr, T=5, methods=("proposed", "proposed_angles"), svt_method="tracked")
+    point (``plot_errorVSnrf.m:20-23``: Mr of Mr_e = 32, T = 5), or at
+    T = 35 and Mr = 4 the canonical point (``plot_errorVSsnr.m:8-25``)."""
+    pc = PointConfig(Mr=mr, T=T, methods=("proposed", "proposed_angles"), svt_method="tracked")
     gens = prng.realization_generators(SEED, mr, "cpu")
     draws = pipeline.point_draws(gens, pc, NV, batch)
     _, obs, A, B, tau_Y, tau_S, rho = pipeline._proposed_frontend(gens, pc, NV, batch, draws=draws)
@@ -135,9 +146,7 @@ def test_the_rule_takes_the_cell_s_call_but_not_on_the_cpu(angles):
     assert not admm_transposed.takes(inputs, OPTIONS)
 
 
-@pytest.mark.parametrize("option,value", [
-    ("use_kernels", False), ("track_precision", "tensorfloat32"), ("init_state", "a state"),
-    ("track_convergence", True), ("svt_method", "eigh"), ("svt_method", "jacobi"), ("mode", "exact")])
+@pytest.mark.parametrize("option,value", DECLINED_OPTIONS)
 def test_the_rule_declines_options_the_kernel_does_not_run(option, value):
     assert not admm_transposed.call_takes(_inputs(), {**OPTIONS, option: value})
 
@@ -195,6 +204,80 @@ def test_proposed_admm_answers_a_taken_call_from_the_transposed_solve(monkeypatc
     assert admm_transposed.solve.calls == calls + 1
     want = admm_transposed.solve(inputs, OPTIONS)
     assert torch.equal(got.S, want.S) and torch.equal(got.Y, want.Y) and got.state is None
+
+
+@pytest.mark.parametrize("option,value", DECLINED_OPTIONS)
+def test_proposed_admm_answers_a_declined_option_from_the_eager_body(monkeypatch, option, value):
+    """With the rule's device check lifted, a call with an option the kernel
+    does not run is answered by ``_proposed_admm``, bit for bit, and no
+    transposed solve."""
+    monkeypatch.setattr(admm_transposed, "takes", admm_transposed.call_takes)
+    inputs = _inputs(batch=2)
+    if option == "init_state":
+        value = admm._proposed_admm(**inputs, **dict(OPTIONS, Imax=3)).state
+    options = dict(OPTIONS, Imax=10, **{option: value})
+    calls = admm_transposed.solve.calls
+    got = admm.proposed_admm(**inputs, **options)
+    assert admm_transposed.solve.calls == calls
+    want = admm._proposed_admm(**inputs, **options)
+    assert torch.equal(got.S, want.S) and torch.equal(got.Y, want.Y)
+    assert (got.convergence is None) == (option != "track_convergence")
+    if got.convergence is not None:
+        assert torch.equal(got.convergence, want.convergence)
+
+
+@pytest.mark.parametrize("angles", [False, True])
+def test_cpu_calls_run_eagerly(angles):
+    """On the CPU ``proposed_admm`` answers the cell's call from
+    ``_proposed_admm``, bit for bit, and no transposed solve."""
+    inputs = _inputs(angles=angles, batch=2)
+    options = dict(OPTIONS, Imax=10)
+    calls = admm_transposed.solve.calls
+    got = admm.proposed_admm(**inputs, **options)
+    assert admm_transposed.solve.calls == calls
+    want = admm._proposed_admm(**inputs, **options)
+    assert torch.equal(got.S, want.S) and torch.equal(got.Y, want.Y)
+
+
+@pytest.mark.parametrize("svt_method", ["eigh", "jacobi", "tracked"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_a_cpu_call_launches_no_kernel(shape, svt_method):
+    """A CPU ``proposed_admm`` call with the kernels on moves no kernel
+    wrapper's launch count and no transposed-solve count."""
+    inputs = _inputs(batch=2, **SHAPES[shape])
+    before, calls = kernels.launch_counts(), admm_transposed.solve.calls
+    admm.proposed_admm(**inputs, **dict(OPTIONS, Imax=10, svt_method=svt_method))
+    assert kernels.launch_counts() == before and admm_transposed.solve.calls == calls
+
+
+@pytest.mark.parametrize("precision", ["high", "default", "tensorfloat32"])
+@pytest.mark.parametrize("angles", [False, True], ids=["proposed", "proposed_angles"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_every_precision_gives_the_float32_bits_on_the_cpu(shape, angles, precision):
+    """``track_precision`` sets the tracked chain's products on the card
+    only (``ops/tracked.py::PRODUCTS``): on the CPU a tracked solve at any
+    setting is the 'highest' one, bit for bit."""
+    inputs = _inputs(angles=angles, batch=2, **SHAPES[shape])
+    options = dict(OPTIONS, Imax=10)
+    got = admm.proposed_admm(**inputs, **dict(options, track_precision=precision))
+    want = admm.proposed_admm(**inputs, **dict(options, track_precision="highest"))
+    assert torch.equal(got.S, want.S) and torch.equal(got.Y, want.Y)
+
+
+def test_the_tracked_step_s_tables_are_made_once_a_size_and_device():
+    first = tracked._tables(6, torch.device("cpu"))
+    tracked.make_tracked_svt(8, 6)
+    tracked.make_tracked_svt(6, 8, device="cpu")
+    assert all(a is b for a, b in zip(tracked._tables(6, torch.device("cpu")), first))
+
+
+def test_cpu_tracked_points_neither_capture_nor_replay():
+    pc = PointConfig(Mr=4, T=5, Imax=4, methods=("proposed", "proposed_angles"), svt_method="tracked")
+    with trace.recording() as spans:
+        for k in range(3):
+            runner.run_point(pc, NV, 3, seed=SEED, sweep_index=k, device="cpu")
+    assert [(s.attrs["captures"], s.attrs["replays"]) for s in spans if s.name == "point"] == [(0, 0)] * 3
+    assert not [s for s in spans if s.name == "replay"]
 
 
 def test_cpu_tracked_points_keep_the_chain():

@@ -21,7 +21,7 @@ from jstsp19_torch.core.config import use_full_fp32
 from jstsp19_torch.core.metrics import clamped_nmse
 from jstsp19_torch.harness import pipeline, runner
 from jstsp19_torch.harness.pipeline import PointConfig
-from jstsp19_torch.solvers import admm, admm_graph, admm_transposed
+from jstsp19_torch.solvers import admm, admm_transposed
 
 pytestmark = pytest.mark.cuda
 
@@ -31,11 +31,10 @@ S_REL_ERR, NMSE_GAP = 3e-3, 1e-3  # perfbench/limits/nrf_tracked_b10000's limits
 
 
 @pytest.fixture
-def cuda(monkeypatch):
+def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernel runs on the card only")
     use_full_fp32()
-    monkeypatch.setattr(admm_graph, "_GRAPHS", {})
     return torch.device("cuda")
 
 
@@ -68,7 +67,7 @@ def test_an_n_greater_than_m_tracked_solve_is_one_fused_launch_within_the_check_
     torch.cuda.synchronize()
     launched = {k: n - before[k] for k, n in kernels.launch_counts().items()}
     assert launched == {"fused_tracked_admm": 2, "dict_correlation": 0, "soft_threshold": 0, "fwht": 0}
-    assert admm_transposed.solve.calls == calls + 2 and admm_graph._GRAPHS == {}
+    assert admm_transposed.solve.calls == calls + 2
     assert torch.equal(got.S, again.S) and torch.equal(got.Y, again.Y)
     assert got.state is None and got.convergence is None
     want = admm._proposed_admm(*args, **kw)

@@ -1,5 +1,5 @@
 """Slice 10 of the port on the CPU: ``track_precision`` in the tracked chain
-against the JAX chain, the 3xTF32 split, the artifacts' tables against JAX's,
+against the JAX chain, the artifacts' tables against JAX's,
 ``run --distributed 2 --cpu`` against the single-process run per
 realization, the launcher flags' stripping, the runner's row cuts, ``panel``
 against ``run_point`` and the ``orbax`` (npz) checkpoint resume."""
@@ -27,7 +27,7 @@ def test_artifact_tables_equal_jax():
     assert artifacts._YLABELS == jartifacts._YLABELS
 
 
-@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("precision", ["highest", "high", "default", "tensorfloat32"])
 @pytest.mark.parametrize("N,M", [(8, 20), (20, 8)])
 def test_tracked_chain_at_each_precision_matches_jax(precision, N, M):
     """Five steps of the chain at each setting on the same numpy inputs:
@@ -46,32 +46,6 @@ def test_tracked_chain_at_each_precision_matches_jax(precision, N, M):
         assert np.abs(X_t.numpy() - X_j).max() <= 2e-5 * np.abs(X_j).max(), (precision, i)
     with pytest.raises(ValueError, match="unknown precision"):
         tracked.make_tracked_svt(N, M, torch.complex64, 1, "bfloat16")
-
-
-def test_3xtf32_split_reconstructs_the_float32_product():
-    """hi keeps TF32's 10 mantissa bits and hi + lo is x exactly; emulated on
-    the CPU (hi·hi alone is what one TF32 pass sees), the three-product form
-    is float32-accurate where one pass is not."""
-    g = torch.Generator().manual_seed(0)
-    x = torch.randn(1000, generator=g)
-    hi, lo = tracked.split_tf32(x)
-    assert int((hi.view(torch.int32) & 0x1FFF).abs().max()) == 0
-    assert torch.equal(hi + lo, x)
-    a = torch.randn(4, 32, 32, dtype=torch.complex64, generator=g)
-    b = torch.randn(4, 32, 140, dtype=torch.complex64, generator=g)
-    exact = a.mH.to(torch.complex128) @ b.to(torch.complex128)
-    scale = float(exact.abs().max())
-    three = tracked.tf32_product(a.mH, b, 3)
-    one = tracked.tf32_product(*(torch.complex(*tracked.split_tf32(t.real)[:1], tracked.split_tf32(t.imag)[0])
-                                 for t in (a.mH.resolve_conj(), b)), 1)
-    err3 = float((three.to(torch.complex128) - exact).abs().max()) / scale
-    err1 = float((one.to(torch.complex128) - exact).abs().max()) / scale
-    err_fp32 = float(((a.mH @ b).to(torch.complex128) - exact).abs().max()) / scale
-    assert err3 <= 4 * err_fp32 + 1e-7 and err3 < 1e-5
-    assert err1 > 1e-4  # one TF32 pass keeps about three decimal digits
-    # on the CPU every setting is the plain float32 product
-    for mode in set(tracked.PRODUCTS.values()):
-        assert torch.equal(tracked.chain_product(a.mH, b, mode), a.mH @ b)
 
 
 def test_run_point_rows_equal_the_whole_batch():
