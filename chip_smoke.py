@@ -70,9 +70,9 @@ Phases (any failure ends the run with a non-zero exit code and no result):
     memory), the kernel instance it runs (``admm_fused.instance``), the
     blocks an SM holds on the card and the compiler's line for the instance;
 14. the kernel timed at the canonical shape for B = 1, 132 and 256, at
-    (M, K) = (420, 48) for B=256 and at errorVSnrf's transposed shape for
-    B=10^4, Imax=100: best, median and spread of 5 CUDA-event reps, each
-    beside its bound;
+    (M, K) = (420, 48) and (400, 64) for B=256 (the 512-thread instance) and
+    at errorVSnrf's transposed shape for B=10^4, Imax=100: best, median and
+    spread of 5 CUDA-event reps, each beside its bound;
 15. the fourth slice, the specialized recipes: ``dict_correlation`` and
     ``soft_threshold`` against their plain versions at every shape these
     recipes give them (max|Δ| ≤ 1e-5·max|ref| and ≤ 1e-6), each with its
@@ -2540,10 +2540,12 @@ def main() -> int:
                 raise SystemExit(f"[13] {label}: the kernel disagrees with its plain version")
     kernels[0]["max_abs_err"] = max_abs_err
 
-    # ---- 14. the fused ADMM kernel timed at five batch sizes and shapes ---------------
+    # ---- 14. the fused ADMM kernel timed at six batch sizes and shapes ----------------
     for label, changes, nv, batch in (("canonical", {}, NOISE_VAR_0DB, 1), ("canonical", {}, NOISE_VAR_0DB, 132),
                                       ("canonical", {}, NOISE_VAR_0DB, B_MAIN),
                                       ("errorVSnt Nt=12 (M=420, K=48)", dict(Nt=12, Gt=12, beamformer="fft"),
+                                       NOISE_VAR_0DB, B_MAIN),
+                                      ("errorVSnt Nt=16 (M=400, K=64)", dict(Nt=16, Gt=16, T=25, beamformer="fft"),
                                        NOISE_VAR_0DB, B_MAIN),
                                       (*NRF_KERNEL, B_NRF)):
         args, _ = _kernel_problem(changes, nv, batch, 0, dev)

@@ -19,7 +19,9 @@ over the point, ``captures`` and ``replays``, the change of
 ``harness.frontend_graph.problem``'s CUDA-graph counts, and
 ``transposed``, the change of ``solvers.admm_transposed.solve.calls``)
 holds ``frontend``, per method ``solve`` (``pack`` and ``launch`` on the
-card) and ``nmse``, and ``to_host``.  ``frontend`` holds ``draws``, ``oracle_rank`` and
+card; ``launch``'s attribute ``threads`` is the kernel's block size, whose
+512-thread launches the ``launches`` counter also reads as
+``fused_tracked_admm_512``) and ``nmse``, and ``to_host``.  ``frontend`` holds ``draws``, ``oracle_rank`` and
 ``dictionaries`` where the front end runs eagerly (and, on the card, at a
 shape's first two points: the second captures them), ``replay`` (the CUDA
 graph of that work) where it replays, and either way ``hyperparams`` (ρ's

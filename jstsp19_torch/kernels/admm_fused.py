@@ -5,9 +5,11 @@ Counterpart of ``jstsp19_tpu/kernels/admm_fused.py::fused_tracked_admm``
 thread block per realization with the iteration loop inside the block and
 streams the (N, M) and (K, M) operands through shared memory in column
 tiles; its source note says what bounds it and what the design does about
-that.  :func:`plan` picks the tile width and says how many blocks share an
-SM; on the card :func:`instance` names the kernel instance that runs a
-shape and :func:`blocks_per_sm` reads how many of its blocks an SM holds.
+that.  :func:`plan` picks the block's threads (and with them the tile
+width) from the shapes and the layout's bytes, and says how many blocks
+share an SM; on the card :func:`instance` names the kernel instance that
+runs a shape and :func:`blocks_per_sm` reads how many of its blocks an SM
+holds.
 The plain version (:func:`fused_tracked_admm_plain`) is the port's
 ``proposed_admm(svt_method='tracked')`` over the batch.  The kernel takes
 N ≤ M; ``solvers/admm_transposed.py`` hands it N > M problems on the
@@ -15,8 +17,10 @@ transpose.
 
 :func:`fused_tracked_admm` takes the plain version for CPU tensors only; for
 CUDA tensors it launches the kernel or raises.  ``fused_tracked_admm.launches``
-counts kernel launches.  Under ``core.trace.recording()`` the wrapper's
-operand packing is a ``pack`` span and the launch a ``launch`` span.
+counts kernel launches, ``fused_tracked_admm.wide_launches`` those of them
+in blocks of :data:`WIDE_THREADS` threads.  Under ``core.trace.recording()``
+the wrapper's operand packing is a ``pack`` span and the launch a
+``launch`` span (attribute ``threads``).
 """
 from __future__ import annotations
 
@@ -40,17 +44,17 @@ def _library(extra_flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
     from jstsp19_torch.kernels.build import load
 
     lib = load("admm_fused", tuple(extra_flags))
-    lib.fused_tracked_admm_launch.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [
+    lib.fused_tracked_admm_launch.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [
         ctypes.c_void_p
     ]
     lib.fused_tracked_admm_launch.restype = ctypes.c_int
-    lib.fused_tracked_admm_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.fused_tracked_admm_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.fused_tracked_admm_smem_bytes.restype = ctypes.c_longlong
-    lib.fused_tracked_admm_registers.argtypes = [ctypes.c_int] * 3
+    lib.fused_tracked_admm_registers.argtypes = [ctypes.c_int] * 4
     lib.fused_tracked_admm_registers.restype = ctypes.c_int
-    lib.fused_tracked_admm_instance.argtypes = [ctypes.c_int] * 3
+    lib.fused_tracked_admm_instance.argtypes = [ctypes.c_int] * 4
     lib.fused_tracked_admm_instance.restype = ctypes.c_char_p
-    lib.fused_tracked_admm_blocks_per_sm.argtypes = [ctypes.c_int] * 4
+    lib.fused_tracked_admm_blocks_per_sm.argtypes = [ctypes.c_int] * 5
     lib.fused_tracked_admm_blocks_per_sm.restype = ctypes.c_int
     lib.fused_tracked_admm_phase_names.restype = ctypes.c_char_p
     lib.fused_tracked_admm_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
@@ -58,8 +62,8 @@ def _library(extra_flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
     return lib
 
 
-THREADS = 256  # threads of a block (kThreads in csrc/admm_fused.cu)
-TILE_WIDTH = 32  # columns of a tile: one a lane (kTW)
+THREADS = 256  # threads of a block
+WIDE_THREADS = 512  # threads of a block that runs alone on an SM (N = Gr = 32)
 SM_SMEM_BYTES = 233_472  # shared memory of one H100 SM
 BLOCK_RESERVED_BYTES = 1_024  # shared memory the card reserves for each resident block
 
@@ -79,61 +83,87 @@ def _round4(n: int) -> int:
     return (n + 3) & ~3
 
 
-def _layout_floats(N: int, Gr: int, K: int) -> int:
-    """Floats of the kernel's shared-memory layout: ``Layout`` in
-    ``csrc/admm_fused.cu``, term by term."""
+def tile_width(threads: int) -> int:
+    """Columns of a column tile for a block of ``threads`` threads, each
+    owning 4 rows of one column in each group of 32 (``tile_width`` in
+    ``csrc/admm_fused.cu``)."""
+    return threads // 8
+
+
+def _layout_floats(N: int, Gr: int, K: int, threads: int = THREADS) -> int:
+    """Floats of the kernel's shared-memory layout for a block of
+    ``threads`` threads: ``Layout`` in ``csrc/admm_fused.cu``, term by term."""
+    tw = tile_width(threads)
     NP = _round4(N)
     ldn = N + 1
     ldt = NP + 4 if (NP // 4) % 2 == 0 else NP
-    ldb = ldw = TILE_WIDTH + 1
+    ldb = ldw = tw + 1
     planes = [  # (plane size, complex buffers of that size)
         (N * ldn, 1), (N * Gr, 1), (Gr * Gr, 1), (K * K, 1), (Gr * K, 2), (K * NP, 1), (N * K, 1),
-        (N * ldn, 1), (max(N * ldn, Gr * K, TILE_WIDTH * ldt), 1), (max(N * ldn, N * NP, K * Gr), 1),
-        (K * ldb, 1), (N * ldw, 1),
+        (N * ldn, 1), (max(N * ldn, Gr * K, tw * ldt), 1), (max(N * ldn, N * NP, K * Gr), 1),
+        (K * ldb, 1), (max(N * ldw, tw * ldt) if threads == WIDE_THREADS else N * ldw, 1),
     ]
     total = sum(2 * _round4(n) * count for n, count in planes)
-    return total + _round4(3 * (N // 2)) + _round4(N) + _round4(2 * THREADS // 32)
+    return total + _round4(3 * (N // 2)) + _round4(N) + _round4(2 * threads // 32)
+
+
+def _two_fit(smem: int) -> bool:
+    """Whether two blocks of ``smem`` bytes of shared memory fit one SM."""
+    return 2 * (smem + BLOCK_RESERVED_BYTES) <= SM_SMEM_BYTES
+
+
+def _threads(N: int, Gr: int, K: int) -> int:
+    """The block's threads for these sizes: :data:`WIDE_THREADS` at N = Gr =
+    32 where two blocks of :data:`THREADS` do not fit an SM's shared memory
+    (one such block would leave the SM 8 warps) and a wide block's layout
+    fits, else :data:`THREADS`."""
+    if N == 32 and Gr == 32 and not _two_fit(4 * _layout_floats(N, Gr, K, THREADS)) and (
+            4 * _layout_floats(N, Gr, K, WIDE_THREADS) <= SMEM_LIMIT_BYTES):
+        return WIDE_THREADS
+    return THREADS
 
 
 def fits(N: int, M: int, Gr: int, K: int) -> bool:
     """Whether one block of the kernel holds the operands it keeps whole (the
     N x N, Gr x Gr, Gr x K and K x K ones) in shared memory: the shapes
     :func:`plan` accepts.  Pure Python, from the same layout."""
-    return 4 * _layout_floats(N, Gr, K) <= SMEM_LIMIT_BYTES
+    return 4 * _layout_floats(N, Gr, K, _threads(N, Gr, K)) <= SMEM_LIMIT_BYTES
 
 
 def plan(N: int, M: int, Gr: int, K: int) -> Plan:
     """Two blocks to an SM where their shared memory fits, else one (every
-    kernel instance's launch bounds leave registers for two; one may leave
-    room for more, as :func:`blocks_per_sm` reads on the card).  Raises,
-    with the bytes, for shapes whose operands kept whole (the N x N, Gr x K
-    and K x K ones) are too large for a block (see :func:`fits`)."""
-    smem = 4 * _layout_floats(N, Gr, K)
-    if not fits(N, M, Gr, K):
+    256-thread instance's launch bounds leave registers for two; one may
+    leave room for more, as :func:`blocks_per_sm` reads on the card).  At
+    N = Gr = 32 a block that runs alone on an SM takes :data:`WIDE_THREADS`
+    threads and 64-column tiles (:func:`_threads`).  Raises, with the bytes,
+    for shapes whose operands kept whole (the N x N, Gr x K and K x K ones)
+    are too large for a block (see :func:`fits`)."""
+    threads = _threads(N, Gr, K)
+    smem = 4 * _layout_floats(N, Gr, K, threads)
+    if smem > SMEM_LIMIT_BYTES:
         raise ValueError(
             f"shapes N={N} M={M} Gr={Gr} K={K} need {smem} B of shared memory, "
             f"more than the {SMEM_LIMIT_BYTES} B a block may use"
         )
-    blocks = 2 if 2 * (smem + BLOCK_RESERVED_BYTES) <= SM_SMEM_BYTES else 1
-    return Plan(TILE_WIDTH, -(-N // 32), THREADS, smem, blocks)
+    return Plan(tile_width(threads), -(-N // 32), threads, smem, 2 if _two_fit(smem) else 1)
 
 
 def smem_bytes(N: int, Gr: int, K: int) -> int:
     """Dynamic shared memory one block of the kernel needs (from the library)."""
-    return int(_library().fused_tracked_admm_smem_bytes(N, Gr, K))
+    return int(_library().fused_tracked_admm_smem_bytes(N, Gr, K, _threads(N, Gr, K)))
 
 
 def instance(N: int, Gr: int, K: int) -> str:
     """The kernel instance that runs these sizes, as ``csrc/admm_fused.cu``
-    chooses it: ``'fused_admm_kernel<NT, GT, RG, KT, MINB>'``."""
-    return f"fused_admm_kernel<{_library().fused_tracked_admm_instance(N, Gr, K).decode()}>"
+    names it: ``'fused_admm_kernel<NT, GT, RG, KT, MINB, TH>'``."""
+    return f"fused_admm_kernel<{_library().fused_tracked_admm_instance(N, Gr, K, _threads(N, Gr, K)).decode()}>"
 
 
 def blocks_per_sm(N: int, Gr: int, K: int, smem: int) -> int:
     """Blocks of that instance one SM of the current card holds at once with
     ``smem`` bytes of dynamic shared memory each (the CUDA occupancy
     calculator: registers, shared memory and launch bounds together)."""
-    blocks = _library().fused_tracked_admm_blocks_per_sm(N, Gr, K, smem)
+    blocks = _library().fused_tracked_admm_blocks_per_sm(N, Gr, K, _threads(N, Gr, K), smem)
     if blocks < 0:
         raise RuntimeError(f"fused_tracked_admm_blocks_per_sm: CUDA error {-blocks}")
     return blocks
@@ -201,11 +231,13 @@ def fused_tracked_admm(
         _check("support_rank", support_rank, (Bt, Gr, K), torch.int32, dev)
     if Imax < 0 or track_rounds < 0:
         raise ValueError("Imax and track_rounds must be non-negative")
-    smem = plan(N, M, Gr, K).smem_bytes
-    out = _launch(_library(), smem, subY, Omega, A, B, tau_Y, tau_S, rho, Imax, support_rank,
+    pl = plan(N, M, Gr, K)
+    out = _launch(_library(), pl.smem_bytes, subY, Omega, A, B, tau_Y, tau_S, rho, Imax, support_rank,
                   track_rounds, support_base, support_step)
     if Bt > 0:
         fused_tracked_admm.launches += 1
+        if pl.threads == WIDE_THREADS:
+            fused_tracked_admm.wide_launches += 1
     return out
 
 
@@ -213,9 +245,10 @@ def _launch(
     lib, smem_bytes, subY, Omega, A, B, tau_Y, tau_S, rho, Imax, support_rank,
     track_rounds, support_base, support_step,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launches ``lib``'s kernel with ``smem_bytes`` of dynamic shared memory
-    (the plan's, or more to keep a second block off an SM) on checked
-    inputs and returns ``(S, Y)``."""
+    """Launches ``lib``'s kernel, in blocks of the threads :func:`plan` gives
+    the shapes, with ``smem_bytes`` of dynamic shared memory (the plan's, or
+    more to keep a second block off an SM) on checked inputs and returns
+    ``(S, Y)``."""
     with span("pack"):
         Bt, N, M = subY.shape
         Gr, K = A.shape[-1], B.shape[-2]
@@ -237,11 +270,12 @@ def _launch(
         work = torch.zeros(Bt * N * M * 6, dtype=torch.float32, device=dev)  # (X, V1) records, then V2
         rank_ptr = support_rank.data_ptr() if support_rank is not None else None
     if Bt > 0:
-        with span("launch"):
+        threads = _threads(N, Gr, K)
+        with span("launch", threads=threads):
             rc = lib.fused_tracked_admm_launch(
                 planes.data_ptr(), A_p.data_ptr(), B_p.data_ptr(), AhA_t.data_ptr(), BBh.data_ptr(),
                 rank_ptr, hp.data_ptr(), sched.data_ptr(), s.data_ptr(), y.data_ptr(), work.data_ptr(),
-                Bt, N, M, Gr, K, Imax, track_rounds, support_base, support_step, smem_bytes,
+                Bt, N, M, Gr, K, Imax, track_rounds, support_base, support_step, smem_bytes, threads,
                 current_stream(dev),
             )
         raise_on_launch_error("fused_tracked_admm", rc)
@@ -249,3 +283,4 @@ def _launch(
 
 
 fused_tracked_admm.launches = 0
+fused_tracked_admm.wide_launches = 0

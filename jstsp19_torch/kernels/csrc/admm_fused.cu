@@ -25,11 +25,11 @@
 //
 // Design (second version):
 // * Column tiles.  The (N, M) and (K, M) operands stream through shared
-//   memory in column tiles of 32 (one column a lane); only the small
+//   memory in column tiles of 32 (64 in a 512-thread block); only the small
 //   operands (U, A, A^H A, B B^H, S, v, A S, the N x N Gram buffers) stay
 //   whole, so any M fits, and any even N whose N x N buffers fit (N <= 68
-//   at Gr = 32, K = 16); at the sweeps' shapes two blocks share an SM (the
-//   wrapper's plan says when).  An iteration is one pass over the
+//   at Gr = 32, K = 16); at most sweep shapes two 256-thread blocks share
+//   an SM (the wrapper's plan says when).  An iteration is one pass over the
 //   tiles between two N x N and Gr x K stages:
 //     T = U^H G U, the rotations, f and Z = U f U^H (N x N);
 //     each tile: A S B, the last iteration's C and V2 update, Y = Z W, the
@@ -61,6 +61,26 @@
 // * Determinism: every output entry has one owner thread that sums in a
 //   fixed order, across tiles too; the block reductions run in a fixed
 //   order; there are no atomics.  Two runs are bit-equal.
+// * One block an SM (errorVSnt's K >= 40 at N = Gr = 32: a 256-thread
+//   block's 127-191 KB of shared memory leave no room for a second): the
+//   512-thread instance.  What bounds it there is neither the operations
+//   nor the device's bytes but three things the 8 warps of one 256-thread
+//   block left bare (tools/torch_admm_phases.py at (420, 48), B = 256):
+//   the tiles' loads, about a third of an iteration, are every block's
+//   burst at the same moment (the state, 0.54-0.70 MB a realization, is
+//   more than L2 holds for 132 blocks, so it streams from device memory);
+//   L += K B^H and the Gr x K products, another third, are bound by shared
+//   memory's bytes to the lanes (2 x 1 tiles: 3 B a FMA) and ran in 3-4
+//   passes of 256 threads; and every other phase has two warps a scheduler
+//   to hide its latency.  The design: 16 warps, each thread still 4 rows
+//   of one column, so tiles 64 columns wide (half the tile passes and
+//   barriers); K B^H on K kept transposed and the four Gr x K products
+//   whose rows lie contiguous as 4 x 1 tiles read as shared float4s, one
+//   pass of 512 threads on a 64-wide grid; the N x N products as 2 x 1
+//   tiles on all 512; the B tile in one chunk; and each tile asks L2 for
+//   the next tile's state and B tile (prefetch.global.L2) as it starts to
+//   compute, so the device's bytes arrive during the compute.  128
+//   registers, no spills; 175 and 219 KB of shared memory at K = 48, 64.
 // * The iteration's phases can be timed: built with -DADMM_PHASES, thread 0
 //   of block 0 adds clock64() differences per phase to a device array
 //   (tools/torch_admm_phases.py).  The normal build has no stamps.
@@ -77,10 +97,7 @@ extern __shared__ __align__(16) float smem[];
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 4;   // rows of a column tile a thread owns, in each group of 32
-constexpr int kTW = 32;    // width of a column tile: one column a lane
+constexpr int kRows = 4;  // rows of a column tile a thread owns, in each group of 32
 #ifdef ADMM_PHASES
 constexpr int kPhases = 13;
 __device__ long long g_phase_cycles[kPhases];
@@ -121,18 +138,23 @@ __host__ __device__ constexpr int imax2(int a, int b) { return a > b ? a : b; }
 // Offsets (in floats) of the shared-memory buffers.  A complex buffer holds
 // its real plane at the offset and its imaginary plane one plane later; a
 // plane is a multiple of 4 floats, so both planes are 16-byte aligned.
-// Mirrored by kernels/admm_fused.py::_layout_floats; keep the two equal.
+// A block of `threads` threads streams column tiles `threads` / 8 columns
+// wide (tile_width).  Mirrored by kernels/admm_fused.py::_layout_floats;
+// keep the two equal.
+__host__ __device__ constexpr int tile_width(int threads) { return threads / 8; }
+
 struct Layout {
   int NP, ldn, ldt, ldb, ldw;
   int pU, pA, pH, pQ, pS, pASt, pL, pG, pE1, pE2, pBt, pWb;  // plane sizes
   int U, A, H, Q, S, v, ASt, L, G, E1, E2, Bt, Wb, rot, f, red, total;
   __host__ __device__ Layout() {}
-  __host__ __device__ Layout(int N, int Gr, int K) {
+  __host__ __device__ Layout(int N, int Gr, int K, int threads) {
+    const int tw = tile_width(threads);
     NP = round4(N);                         // rows read as 4-vectors
     ldn = N + 1;                            // N x N buffers: odd stride
     ldt = (NP / 4) % 2 == 0 ? NP + 4 : NP;  // transposed W tile (in E1): float4 stores
-    ldb = kTW + 1;                          // B tile: odd stride
-    ldw = kTW + 1;                          // W and K tile: odd stride
+    ldb = tw + 1;                           // B tile: odd stride
+    ldw = tw + 1;                           // W and K tile: odd stride
     pU = round4(N * ldn);
     pA = round4(N * Gr);
     pH = round4(Gr * Gr);
@@ -141,10 +163,10 @@ struct Layout {
     pASt = round4(K * NP);
     pL = round4(N * K);
     pG = round4(N * ldn);
-    pE1 = round4(imax2(imax2(N * ldn, Gr * K), kTW * ldt));
+    pE1 = round4(imax2(imax2(N * ldn, Gr * K), tw * ldt));
     pE2 = round4(imax2(imax2(N * ldn, N * NP), K * Gr));
     pBt = round4(K * ldb);
-    pWb = round4(N * ldw);
+    pWb = round4(threads == 512 ? imax2(N * ldw, tw * ldt) : N * ldw);  // 512: then K, transposed
     int o = 0;
     U = o;   o += 2 * pU;
     A = o;   o += 2 * pA;
@@ -161,7 +183,7 @@ struct Layout {
     Wb = o;  o += 2 * pWb;
     rot = o; o += round4(3 * (N / 2));
     f = o;   o += round4(N);
-    red = o; o += round4(2 * kWarps);
+    red = o; o += round4(2 * (threads / 32));
     total = o;
   }
 };
@@ -172,9 +194,12 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Block-wide sum of two values in a fixed order.  Every thread returns the
-// same totals.  Starts and ends with a barrier, so `red` may be reused.
+// Block-wide sum of two values in a fixed order over a block of TH
+// threads.  Every thread returns the same totals.  Starts and ends with a
+// barrier, so `red` may be reused.
+template <int TH>
 __device__ __forceinline__ void block_sum2(float& a, float& b, float* red) {
+  constexpr int kWarps = TH / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   a = warp_sum(a);
   b = warp_sum(b);
@@ -240,15 +265,15 @@ __device__ __forceinline__ void tile_mma(
 }
 
 // out(i, j) = sum_k x(k, i) y(k, j) for i < I, j < J, handed to
-// epi(i, j, re, im); a thread owns TI x 1 outputs on a TX-wide grid.  The
-// owner of (i, j) depends only on (I, J), so an epilogue that accumulates
-// into shared memory across calls sums in a fixed order.  Called by every
-// thread of the block.
-template <int TI, int TX, bool CX, bool CY, bool VEC, class Epi>
+// epi(i, j, re, im); a thread of the TH owns TI x 1 outputs on a TX-wide
+// grid.  The owner of (i, j) depends only on (I, J), so an epilogue that
+// accumulates into shared memory across calls sums in a fixed order.
+// Called by every thread of the block.
+template <int TH, int TI, int TX, bool CX, bool CY, bool VEC, class Epi>
 __device__ __forceinline__ void block_mm(
     int I, int J, int kd, const float* xr, const float* xi, int sxk, int sxi,
     const float* yr, const float* yi, int syk, int syj, Epi epi) {
-  constexpr int TY = kThreads / TX;
+  constexpr int TY = TH / TX;
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   for (int i0 = ty * TI; i0 < I; i0 += TY * TI) {
     for (int j = tx; j < J; j += TX) {
@@ -263,35 +288,58 @@ __device__ __forceinline__ void block_mm(
   }
 }
 
-// The register tiles of an instance's products, from its compile-time
-// sizes (0: known at run time only).  The N x N products: 2 x 1 tiles on an
-// N-wide grid where N is fixed and its N/2 x N tiles fit the block's threads
-// (N = 20: 200 threads busy, where 4 x 1 tiles on a 32-wide grid keep 100
-// busy), else 4 x 1 tiles on a 32-wide grid.  The Gr x K products and
-// K B^H: 2 x 1 tiles on a 32-wide grid where K is fixed at 32 (a 16 x 32
-// product in one pass of all 256 threads, where a 16-wide grid takes two
-// passes of 128), else on a 16-wide one.
-template <int NT, int GT, int KT>
+// The shape of an instance's work, from its compile-time sizes (0: known
+// at run time only) and its TH threads.  Column tiles are tw = TH / 8
+// columns wide: a thread owns kRows rows of one column in each group of 32
+// rows.  The N x N products: 2 x 1 tiles on an N-wide grid where N is fixed
+// and its N/2 x N tiles fit the block's threads (N = 20: 200 of 256 threads
+// busy, where 4 x 1 tiles on a 32-wide grid keep 100 busy; N = 32: all 512),
+// else 4 x 1 tiles on a 32-wide grid.  The Gr x K products and K B^H: 2 x 1
+// tiles on a 32-wide grid where K is fixed at 32 (a 16 x 32 product in one
+// pass of all 256 threads, where a 16-wide grid takes two passes of 128) or
+// where 512 threads make 16 rows of 2 (Gr = 32 in one row pass), else on a
+// 16-wide one.  A B tile (K <= 64 rows) moves in one chunk of b_chunk
+// entries a thread where 512 threads share it.  There (wide), K B^H and
+// the Gr x K products whose rows lie contiguous in shared memory take 4 x 1
+// tiles on a 64-wide grid, their rows read as float4s that a warp shares
+// (K goes back into the W tile transposed for it): a shared load then feeds
+// four FMAs where a 2 x 1 tile's feeds one and a third; and each column
+// tile asks L2 for the next one's state and B tile (prefetch_tile).
+template <int NT, int GT, int KT, int TH>
 struct Tiles {
-  static constexpr bool narrow = NT > 0 && NT * NT / 2 <= kThreads;
+  static_assert(TH == 256 || (TH == 512 && NT == 32 && GT == 32), "512 threads only at N = Gr = 32");
+  static constexpr int threads = TH, tw = tile_width(TH);
+  static constexpr bool narrow = NT > 0 && NT * NT / 2 <= TH;
   static constexpr int nn_ti = narrow ? 2 : 4, nn_tx = narrow ? NT : 32;
-  static constexpr int small_tx = KT == 32 ? 32 : 16;
+  static constexpr int small_tx = KT == 32 || TH == 512 ? 32 : 16;
+  static constexpr int b_chunk = TH == 512 ? 8 : 4;
+  static constexpr bool wide = TH == 512;
+  static constexpr int vec_ti = wide ? 4 : 2, vec_tx = wide ? 64 : small_tx;
 };
 
-// The N x N products: TI x 1 tiles on a TX-wide thread grid.
-template <int TI, int TX, bool CX, bool CY, class Epi>
+// The N x N products: T's tiles on T's thread grid.
+template <class T, bool CX, bool CY, class Epi>
 __device__ __forceinline__ void nn_mm(
     int I, int J, int kd, const float* xr, const float* xi, int sxk, int sxi,
     const float* yr, const float* yi, int syk, int syj, Epi epi) {
-  block_mm<TI, TX, CX, CY, false>(I, J, kd, xr, xi, sxk, sxi, yr, yi, syk, syj, epi);
+  block_mm<T::threads, T::nn_ti, T::nn_tx, CX, CY, false>(I, J, kd, xr, xi, sxk, sxi, yr, yi, syk, syj, epi);
 }
 
-// The Gr x K products and K B^H: 2 x 1 tiles on a TX-wide thread grid.
-template <int TX, bool CX, bool CY, class Epi>
+// The Gr x K products and K B^H: 2 x 1 tiles on T's small grid.
+template <class T, bool CX, bool CY, class Epi>
 __device__ __forceinline__ void small_mm(
     int I, int J, int kd, const float* xr, const float* xi, int sxk, int sxi,
     const float* yr, const float* yi, int syk, int syj, Epi epi) {
-  block_mm<2, TX, CX, CY, false>(I, J, kd, xr, xi, sxk, sxi, yr, yi, syk, syj, epi);
+  block_mm<T::threads, 2, T::small_tx, CX, CY, false>(I, J, kd, xr, xi, sxk, sxi, yr, yi, syk, syj, epi);
+}
+
+// The Gr x K products whose x rows are contiguous (sxi = 1, 16-byte aligned,
+// I a multiple of 4): T's vector tiles where it has them, else small_mm's.
+template <class T, bool CX, bool CY, class Epi>
+__device__ __forceinline__ void vec_mm(
+    int I, int J, int kd, const float* xr, const float* xi, int sxk,
+    const float* yr, const float* yi, int syk, int syj, Epi epi) {
+  block_mm<T::threads, T::vec_ti, T::vec_tx, CX, CY, T::wide>(I, J, kd, xr, xi, sxk, 1, yr, yi, syk, syj, epi);
 }
 
 // W = X - V1/rho, as both passes compute it (one rounding, the same bits).
@@ -315,8 +363,11 @@ struct Ctx {
 // Columns [m0, m0 + tw) of B into the B tile, row stride ldb.  Each
 // chunk's loads are all issued before its stores; the caller issues its own
 // state loads first, so the two sets of loads are in flight together.
+// (k, j) entries a thread moves at once: T::b_chunk, so K <= 32 (256
+// threads) or K <= 64 (512) in one chunk.
+template <class T>
 __device__ __forceinline__ void load_b_tile(const Ctx& c, int m0, int tw) {
-  constexpr int kChunk = 4;  // (k, j) entries a thread moves at once: K <= 32 in one chunk
+  constexpr int kChunk = T::b_chunk, kTW = T::tw, kThreads = T::threads;
   float* Btr = smem + c.ly.Bt;
   const int KM = c.K * c.M, n = c.K * kTW;
   for (int base = 0; base < n; base += kChunk * kThreads) {
@@ -335,6 +386,39 @@ __device__ __forceinline__ void load_b_tile(const Ctx& c, int m0, int tw) {
         Btr[k * c.ly.ldb + j] = vr[q];
         Btr[c.ly.pBt + k * c.ly.ldb + j] = vi[q];
       }
+    }
+  }
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// Asks L2 for what the column tile at m0 will load: the state and inputs
+// of the thread's rows n0 .. n0+3 of column m0 + j, and the entries of the
+// B tile that load_b_tile gives the thread.  Where a block streams a
+// realization's state from device memory (more than L2 holds for all
+// blocks), the next tile's bytes then arrive while this tile computes, in
+// place of all blocks' loads at once at the tile's start.
+template <class T>
+__device__ __forceinline__ void prefetch_tile(const Ctx& c, int n0, int m0, int j) {
+  const int tw = min(T::tw, c.M - m0);
+  if (j < tw) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (n0 + r < c.N) {
+        const int e = (n0 + r) * c.M + m0 + j;
+        prefetch_l2(c.xv + e);
+        prefetch_l2(c.v2 + e);
+        prefetch_l2(c.in + e);
+      }
+  }
+  const int KM = c.K * c.M, n = c.K * T::tw;
+  for (int e = threadIdx.x; e < n; e += T::threads) {
+    const int k = e / T::tw, jb = e % T::tw;
+    if (jb < tw) {
+      prefetch_l2(c.bg + k * c.M + m0 + jb);
+      prefetch_l2(c.bg + KM + k * c.M + m0 + jb);
     }
   }
 }
@@ -441,13 +525,14 @@ __device__ __forceinline__ void zw_rows(const Ctx& c, int n0, int j, int tw, flo
                                       smem + L.Wb, smem + L.Wb + L.pWb, L.ldw, 1, tw, n0, j, yr, yi);
 }
 
-// One column tile of an iteration.  A thread owns rows n0 .. n0+3 (n0 =
-// 4 * warp + 32 g, for each group g of 32 rows) of column `lane` of the
-// tile.  The tile's W = X - V1/rho goes into the W tile; then, per row,
-// A S B with the S of the last iteration, Y = Z W and update_rows; K goes
-// back into the W tile; then L (+)= K B^H and, unless this is the last
-// iteration, the next iteration's Gram G (+)= W W^H.  C is not stored:
-// each iteration forms it again from X, V2 and A S B.
+// One column tile of an iteration, T::tw columns wide.  A thread owns rows
+// n0 .. n0+3 (n0 = 4 * (thread / tw) + 32 g, for each group g of 32 rows)
+// of column thread % tw of the tile: a warp's lanes hold 32 neighbouring
+// columns of the same rows.  The tile's W = X - V1/rho goes into the W
+// tile; then, per row, A S B with the S of the last iteration, Y = Z W and
+// update_rows; K goes back into the W tile; then L (+)= K B^H and, unless
+// this is the last iteration, the next iteration's Gram G (+)= W W^H.  C
+// is not stored: each iteration forms it again from X, V2 and A S B.
 //
 // RG = 1 (N <= 32) keeps the group's loads and K in registers: every load
 // of the tile (X, V1, V2, the inputs, the B tile) is issued at once.
@@ -458,11 +543,12 @@ __device__ __forceinline__ void zw_rows(const Ctx& c, int n0, int j, int tw, flo
 //
 // Called by every thread; holds the barriers between its steps and ends
 // with one.  Returns whether the next W of its elements is finite.
-template <int RG, int STX>
+template <int RG, class T>
 __device__ __forceinline__ bool column_tile(const Ctx& c, bool ok, int it, bool last_it, bool first, int m0,
-                                            int tw, bool load_b, long long& t_phase) {
+                                            int tw, bool load_b, int next_m0, long long& t_phase) {
   static_assert(RG == 0 || RG == 1, "one group in registers, or any number one at a time");
-  const int j = threadIdx.x & 31, w4 = kRows * (threadIdx.x >> 5);
+  static_assert(RG == 1 || !T::wide, "K goes back transposed only from registers");
+  const int j = threadIdx.x % T::tw, w4 = kRows * (threadIdx.x / T::tw);
   const Layout& L = c.ly;
   float* Wr = smem + L.Wb;
   float* Wi = Wr + L.pWb;
@@ -470,10 +556,11 @@ __device__ __forceinline__ bool column_tile(const Ctx& c, bool ok, int it, bool 
   if (RG == 1) {
     Rows s;
     load_rows(c, s, w4, m0, j, tw, it, true);
-    if (load_b) load_b_tile(c, m0, tw);
+    if (load_b) load_b_tile<T>(c, m0, tw);
     store_w(c, s, w4, j, ok);
     __syncthreads();
     PHASE(3)
+    if (T::wide && next_m0 >= 0) prefetch_tile<T>(c, w4, next_m0, j);
     float kr[kRows], ki[kRows];
     if (w4 < c.N) {
       float br[kRows], bi[kRows], yr[kRows], yi[kRows];
@@ -485,14 +572,21 @@ __device__ __forceinline__ bool column_tile(const Ctx& c, bool ok, int it, bool 
     }
     __syncthreads();
     PHASE(6)
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (w4 + r < c.N && j < tw) {
-        Wr[(w4 + r) * L.ldw + j] = kr[r];
-        Wi[(w4 + r) * L.ldw + j] = ki[r];
+    if (T::wide) {  // K transposed, Kt[j][n]: the thread's rows as one float4
+      if (j < tw) {
+        *reinterpret_cast<float4*>(Wr + j * L.ldt + w4) = make_float4(kr[0], kr[1], kr[2], kr[3]);
+        *reinterpret_cast<float4*>(Wi + j * L.ldt + w4) = make_float4(ki[0], ki[1], ki[2], ki[3]);
       }
+    } else {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        if (w4 + r < c.N && j < tw) {
+          Wr[(w4 + r) * L.ldw + j] = kr[r];
+          Wi[(w4 + r) * L.ldw + j] = ki[r];
+        }
+    }
   } else {
-    if (load_b) load_b_tile(c, m0, tw);
+    if (load_b) load_b_tile<T>(c, m0, tw);
     for (int n0 = w4; n0 < c.N; n0 += 32) {
       Rows s;
       load_rows(c, s, n0, m0, j, tw, it, false);
@@ -537,22 +631,25 @@ __device__ __forceinline__ bool column_tile(const Ctx& c, bool ok, int it, bool 
   float* Lr = smem + L.L;
   float* Li = Lr + L.pL;
   const int Kd = c.K;
-  small_mm<STX, false, true>(c.N, c.K, tw, Wr, Wi, 1, L.ldw, smem + L.Bt, smem + L.Bt + L.pBt, 1, L.ldb,
-                        [&](int n, int k, float re, float im) {
-                          if (first) {
-                            Lr[n * Kd + k] = re;
-                            Li[n * Kd + k] = im;
-                          } else {
-                            Lr[n * Kd + k] += re;
-                            Li[n * Kd + k] += im;
-                          }
-                        });
+  const auto add_l = [&](int n, int k, float re, float im) {
+    if (first) {
+      Lr[n * Kd + k] = re;
+      Li[n * Kd + k] = im;
+    } else {
+      Lr[n * Kd + k] += re;
+      Li[n * Kd + k] += im;
+    }
+  };
+  if (T::wide)
+    vec_mm<T, false, true>(c.N, c.K, tw, Wr, Wi, L.ldt, smem + L.Bt, smem + L.Bt + L.pBt, 1, L.ldb, add_l);
+  else
+    small_mm<T, false, true>(c.N, c.K, tw, Wr, Wi, 1, L.ldw, smem + L.Bt, smem + L.Bt + L.pBt, 1, L.ldb, add_l);
   PHASE(8)
   if (!last_it) {  // the next iteration's Gram: G (+)= W W^H, W from Wt
     float* Gre = smem + L.G;
     float* Gim = Gre + L.pG;
     const int ldn = L.ldn;
-    block_mm<4, 32, false, true, true>(c.N, c.N, tw, smem + L.E1, smem + L.E1 + L.pE1, L.ldt, 1, smem + L.E1,
+    block_mm<T::threads, 4, 32, false, true, true>(c.N, c.N, tw, smem + L.E1, smem + L.E1 + L.pE1, L.ldt, 1, smem + L.E1,
                                        smem + L.E1 + L.pE1, L.ldt, 1, [&](int i, int k, float re, float im) {
                                          if (first) {
                                            Gre[i * ldn + k] = re;
@@ -570,17 +667,21 @@ __device__ __forceinline__ bool column_tile(const Ctx& c, bool ok, int it, bool 
 
 // NT, GT, KT: N, Gr and K fixed at compile time (0: taken from p at run
 // time); RG: 1 for N <= 32 (one group of rows in registers), 0 for any N
-// (column_tile); MINB: the blocks an SM the registers must leave room for.
-// Three instances: <32, 32, 1, 0, 2> for the sweeps' N = Gr = 32, whose
-// index arithmetic folds into constants (1.3-1.5x faster there than the
-// same code with sizes at run time; PERF.md); <20, 16, 1, 32, 3> for
-// errorVSnrf's N > M problem on the transpose (solvers/admm_transposed.py),
-// three blocks an SM (80 registers, a few spills; 1.58x the generic
-// instance's speed there, PERF.md); and <0, 0, 0, 0, 2> for every other
-// shape.
-template <int NT, int GT, int RG, int KT, int MINB>
-__global__ void __launch_bounds__(kThreads, MINB) fused_admm_kernel(Params p) {
-  using T = Tiles<NT, GT, KT>;
+// (column_tile); MINB: the blocks an SM the registers must leave room for;
+// TH: the block's threads.  Four instances: <32, 32, 1, 0, 2, 256> for the
+// sweeps' N = Gr = 32 where two blocks share an SM, whose index arithmetic
+// folds into constants (1.3-1.5x faster there than the same code with sizes
+// at run time; PERF.md); <32, 32, 1, 0, 1, 512> for the same sizes where a
+// block's shared memory leaves room for one block an SM (K >= 40 at the
+// sweeps' shapes; the wrapper's plan chooses it): 16 warps on the SM in
+// place of 8, 64-column tiles; <20, 16, 1, 32, 3, 256> for errorVSnrf's
+// N > M problem on the transpose (solvers/admm_transposed.py), three blocks
+// an SM (80 registers, a few spills; 1.58x the generic instance's speed
+// there, PERF.md); and <0, 0, 0, 0, 2, 256> for every other shape.
+template <int NT, int GT, int RG, int KT, int MINB, int TH>
+__global__ void __launch_bounds__(TH, MINB) fused_admm_kernel(Params p) {
+  using T = Tiles<NT, GT, KT, TH>;
+  constexpr int kThreads = TH, kTW = T::tw;
   const int N = NT ? NT : p.N, Gr = GT ? GT : p.Gr;
   const int M = p.M, K = KT ? KT : p.K;
   const int GK = Gr * K, half = N / 2, tid = threadIdx.x;
@@ -588,7 +689,7 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_admm_kernel(Params p) {
 
   Ctx c;
   c.N = N; c.M = M; c.Gr = Gr; c.K = K;
-  c.ly = Layout(N, Gr, K);
+  c.ly = Layout(N, Gr, K, TH);
   c.rho = p.hp[4 * b + 0];
   c.thrY = p.hp[4 * b + 1];
   c.thrS = p.hp[4 * b + 2];
@@ -653,12 +754,12 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_admm_kernel(Params p) {
     }
 
     // ---- T = U^H (G U) -------------------------------------------------------
-    nn_mm<T::nn_ti, T::nn_tx, false, false>(N, N, N, Gr_, Gi_, 1, ldn, Ur, Ui, ldn, 1, [&](int i, int j, float re, float im) {
+    nn_mm<T, false, false>(N, N, N, Gr_, Gi_, 1, ldn, Ur, Ui, ldn, 1, [&](int i, int j, float re, float im) {
       E2r[i * ldn + j] = re;
       E2i[i * ldn + j] = im;
     });
     __syncthreads();
-    nn_mm<T::nn_ti, T::nn_tx, true, false>(N, N, N, Ur, Ui, ldn, 1, E2r, E2i, ldn, 1, [&](int i, int j, float re, float im) {
+    nn_mm<T, true, false>(N, N, N, Ur, Ui, ldn, 1, E2r, E2i, ldn, 1, [&](int i, int j, float re, float im) {
       E1r[i * ldn + j] = re;
       E1i[i * ldn + j] = im;
     });
@@ -736,7 +837,7 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_admm_kernel(Params p) {
       E1i[i * ldn + k] = Ui[i * ldn + k] * fsh[k];
     }
     __syncthreads();
-    nn_mm<T::nn_ti, T::nn_tx, false, true>(N, N, N, E1r, E1i, 1, ldn, Ur, Ui, 1, ldn, [&](int i, int j, float re, float im) {
+    nn_mm<T, false, true>(N, N, N, E1r, E1i, 1, ldn, Ur, Ui, 1, ldn, [&](int i, int j, float re, float im) {
       E2r[j * NP + i] = re;
       E2i[j * NP + i] = im;
     });
@@ -747,22 +848,24 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_admm_kernel(Params p) {
     finite = true;
     for (int t = 0; t < ntiles; ++t) {
       const int m0 = t * kTW, tw = min(kTW, M - m0);
-      finite = column_tile<RG, T::small_tx>(c, ok, it, it == p.Imax - 1, t == 0, m0, tw, ntiles > 1 || it == 0, t_phase) &&
+      const int next_m0 = t + 1 < ntiles ? m0 + kTW : (it + 1 < p.Imax ? 0 : -1);  // the tile after this one
+      finite = column_tile<RG, T>(c, ok, it, it == p.Imax - 1, t == 0, m0, tw, ntiles > 1 || it == 0, next_m0,
+                                  t_phase) &&
                finite;
     }
 
     // ---- r = A^H L - (A^H A) v (B B^H) ---------------------------------------
     // r in E1 as [q][k]; (A^H A) x in E2 transposed, [k][q]
-    small_mm<T::small_tx, true, false>(Gr, K, N, Ar, Ai, Gr, 1, Lr, Li, K, 1, [&](int q, int k, float re, float im) {
+    vec_mm<T, true, false>(Gr, K, N, Ar, Ai, Gr, Lr, Li, K, 1, [&](int q, int k, float re, float im) {
       E1r[q * K + k] = re;
       E1i[q * K + k] = im;
     });
-    small_mm<T::small_tx, false, false>(Gr, K, Gr, Hr, Hi, Gr, 1, vr, vi, K, 1, [&](int q, int k, float re, float im) {
+    vec_mm<T, false, false>(Gr, K, Gr, Hr, Hi, Gr, vr, vi, K, 1, [&](int q, int k, float re, float im) {
       E2r[k * Gr + q] = re;
       E2i[k * Gr + q] = im;
     });
     __syncthreads();
-    small_mm<T::small_tx, false, false>(Gr, K, K, E2r, E2i, Gr, 1, Qr, Qi, K, 1, [&](int q, int k, float re, float im) {
+    vec_mm<T, false, false>(Gr, K, K, E2r, E2i, Gr, Qr, Qi, K, 1, [&](int q, int k, float re, float im) {
       E1r[q * K + k] -= re;
       E1i[q * K + k] -= im;
     });
@@ -770,18 +873,18 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_admm_kernel(Params p) {
     PHASE(10)
 
     // ---- exact step: num = |r|^2, den = Re<r, (A^H A) r (B B^H)> ---------------
-    small_mm<T::small_tx, false, false>(Gr, K, Gr, Hr, Hi, Gr, 1, E1r, E1i, K, 1, [&](int q, int k, float re, float im) {
+    vec_mm<T, false, false>(Gr, K, Gr, Hr, Hi, Gr, E1r, E1i, K, 1, [&](int q, int k, float re, float im) {
       E2r[k * Gr + q] = re;
       E2i[k * Gr + q] = im;
     });
     __syncthreads();
     float num = 0.f, den = 0.f;
-    small_mm<T::small_tx, false, false>(Gr, K, K, E2r, E2i, Gr, 1, Qr, Qi, K, 1, [&](int q, int k, float re, float im) {
+    vec_mm<T, false, false>(Gr, K, K, E2r, E2i, Gr, Qr, Qi, K, 1, [&](int q, int k, float re, float im) {
       const float rr = E1r[q * K + k], ri = E1i[q * K + k];
       num = fmaf(rr, rr, fmaf(ri, ri, num));
       den = fmaf(rr, re, fmaf(ri, im, den));
     });
-    block_sum2(num, den, red);
+    block_sum2<TH>(num, den, red);
     const float alpha = den > 0.f ? num / den : 0.f;
     PHASE(11)
 
@@ -799,7 +902,7 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_admm_kernel(Params p) {
       Si[e] = si;
     }
     __syncthreads();
-    small_mm<T::small_tx, false, false>(N, K, Gr, Ar, Ai, 1, Gr, Sr, Si, K, 1, [&](int n, int k, float re, float im) {
+    small_mm<T, false, false>(N, K, Gr, Ar, Ai, 1, Gr, Sr, Si, K, 1, [&](int n, int k, float re, float im) {
       ASr[k * NP + n] = re;
       ASi[k * NP + n] = im;
     });
@@ -813,51 +916,63 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_admm_kernel(Params p) {
   }
 }
 
-// A kernel instance and its template arguments, as written.
+// A kernel instance, its template arguments as written, and its threads.
 struct Instance {
   void (*kern)(Params);
   const char* args;
+  int threads;
 };
-#define INSTANCE(...) Instance{fused_admm_kernel<__VA_ARGS__>, #__VA_ARGS__}
+#define INSTANCE(NT, GT, RG, KT, MINB, TH) \
+  Instance{fused_admm_kernel<NT, GT, RG, KT, MINB, TH>, #NT ", " #GT ", " #RG ", " #KT ", " #MINB ", " #TH, TH}
 
-// The instance that runs these sizes.
-Instance instance(int N, int Gr, int K) {
-  if (N == 32 && Gr == 32) return INSTANCE(32, 32, 1, 0, 2);
-  if (N == 20 && Gr == 16 && K == 32) return INSTANCE(20, 16, 1, 32, 3);
-  return INSTANCE(0, 0, 0, 0, 2);
+// The instance that runs these sizes in blocks of `threads` threads (256,
+// or 512 at N = Gr = 32), or one with no kernel for any other pair.
+Instance instance(int N, int Gr, int K, int threads) {
+  if (threads == 512) return N == 32 && Gr == 32 ? INSTANCE(32, 32, 1, 0, 1, 512) : Instance{nullptr, nullptr, 0};
+  if (threads != 256) return Instance{nullptr, nullptr, 0};
+  if (N == 32 && Gr == 32) return INSTANCE(32, 32, 1, 0, 2, 256);
+  if (N == 20 && Gr == 16 && K == 32) return INSTANCE(20, 16, 1, 32, 3, 256);
+  return INSTANCE(0, 0, 0, 0, 2, 256);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs for these sizes.
-long long fused_tracked_admm_smem_bytes(int N, int Gr, int K) {
-  return (long long)Layout(N, Gr, K).total * (long long)sizeof(float);
+// Bytes of dynamic shared memory one block of `threads` threads needs for
+// these sizes.
+long long fused_tracked_admm_smem_bytes(int N, int Gr, int K, int threads) {
+  return (long long)Layout(N, Gr, K, threads).total * (long long)sizeof(float);
 }
 
-// The template arguments of the instance that runs N, Gr and K, as
-// "NT, GT, RG, KT, MINB".
-const char* fused_tracked_admm_instance(int N, int Gr, int K) { return instance(N, Gr, K).args; }
+// The template arguments of the instance that runs N, Gr and K in blocks of
+// `threads` threads, as "NT, GT, RG, KT, MINB, TH", or NULL where none does.
+const char* fused_tracked_admm_instance(int N, int Gr, int K, int threads) {
+  return instance(N, Gr, K, threads).args;
+}
 
 // Registers a thread uses (cudaFuncGetAttributes) in the instance that
-// runs N, Gr and K, or a negative CUDA error code.
-int fused_tracked_admm_registers(int N, int Gr, int K) {
+// runs N, Gr and K in blocks of `threads` threads, or a negative CUDA error
+// code.
+int fused_tracked_admm_registers(int N, int Gr, int K, int threads) {
+  const Instance inst = instance(N, Gr, K, threads);
+  if (!inst.kern) return -(int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, instance(N, Gr, K).kern);
+  const cudaError_t err = cudaFuncGetAttributes(&a, inst.kern);
   return err == cudaSuccess ? a.numRegs : -(int)err;
 }
 
-// Blocks of the instance that runs N, Gr and K that one SM of the current
-// device holds at once with smem_bytes of dynamic shared memory each
+// Blocks of that instance that one SM of the current device holds at once
+// with smem_bytes of dynamic shared memory each
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor: its registers, its
 // shared memory and the launch bounds together), or a negative CUDA error
 // code.
-int fused_tracked_admm_blocks_per_sm(int N, int Gr, int K, int smem_bytes) {
-  void (*kern)(Params) = instance(N, Gr, K).kern;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+int fused_tracked_admm_blocks_per_sm(int N, int Gr, int K, int threads, int smem_bytes) {
+  const Instance inst = instance(N, Gr, K, threads);
+  if (!inst.kern) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(inst.kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   int blocks = 0;
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kThreads, smem_bytes);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, inst.kern, inst.threads, smem_bytes);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
@@ -886,16 +1001,17 @@ int fused_tracked_admm_phase_cycles(long long* out, int reset) {
 #endif
 }
 
-// Launches one block per realization on `stream` with the dynamic shared
-// memory of the wrapper's plan (at least the layout's; more keeps a second
-// block off the SM).  Returns the cudaGetLastError() code of the launch
-// (0 = launched).
+// Launches one block of `threads` threads per realization on `stream` with
+// the dynamic shared memory of the wrapper's plan (at least the layout's;
+// more keeps a second block off the SM).  Returns the cudaGetLastError()
+// code of the launch (0 = launched).
 int fused_tracked_admm_launch(
     const void* in, const void* a, const void* bmat, const void* ahat, const void* bbh,
     const void* rank, const void* hp, const void* sched, void* s, void* y, void* work,
     int batch, int N, int M, int Gr, int K, int Imax, int track_rounds,
-    int support_base, int support_step, int smem_bytes, void* stream) {
-  if (N % 2 || N > M) return (int)cudaErrorInvalidValue;
+    int support_base, int support_step, int smem_bytes, int threads, void* stream) {
+  const Instance inst = instance(N, Gr, K, threads);
+  if (N % 2 || N > M || !inst.kern) return (int)cudaErrorInvalidValue;
   Params p;
   p.in = static_cast<const float*>(in);
   p.a = static_cast<const float*>(a);
@@ -918,12 +1034,11 @@ int fused_tracked_admm_launch(
   p.support_base = support_base;
   p.support_step = support_step;
 
-  const size_t smem_size = (size_t)imax2(Layout(N, Gr, K).total * (int)sizeof(float), smem_bytes);
+  const size_t smem_size = (size_t)imax2(Layout(N, Gr, K, threads).total * (int)sizeof(float), smem_bytes);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  void (*kern)(Params) = instance(N, Gr, K).kern;
-  const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_size);
+  const cudaError_t err = cudaFuncSetAttribute(inst.kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_size);
   if (err != cudaSuccess) return (int)err;
-  kern<<<batch, kThreads, smem_size, st>>>(p);
+  inst.kern<<<batch, threads, smem_size, st>>>(p);
   return (int)cudaGetLastError();
 }
 

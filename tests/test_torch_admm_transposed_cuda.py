@@ -66,7 +66,8 @@ def test_an_n_greater_than_m_tracked_solve_is_one_fused_launch_within_the_check_
     again = admm.proposed_admm(*args, **kw)
     torch.cuda.synchronize()
     launched = {k: n - before[k] for k, n in kernels.launch_counts().items()}
-    assert launched == {"fused_tracked_admm": 2, "dict_correlation": 0, "soft_threshold": 0, "fwht": 0}
+    assert launched == {"fused_tracked_admm": 2, "fused_tracked_admm_512": 0, "dict_correlation": 0,
+                        "soft_threshold": 0, "fwht": 0}
     assert admm_transposed.solve.calls == calls + 2
     assert torch.equal(got.S, again.S) and torch.equal(got.Y, again.Y)
     assert got.state is None and got.convergence is None

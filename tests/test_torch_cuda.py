@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from jstsp19_torch.core import prng
+from jstsp19_torch.core import prng, trace
 from jstsp19_torch.harness import runner
 from jstsp19_torch.harness.pipeline import (
     PointConfig,
@@ -41,6 +41,8 @@ IMAX = 25
 # sweep recipes (N = Gr = 32; M = T*Nt, K = Gt*L)
 SWEEP_MK = ((140, 16), (40, 32), (120, 32), (200, 32), (280, 32), (40, 16), (60, 24), (80, 32),
             (100, 40), (210, 24), (420, 48), (400, 64))
+# the sweep shapes whose block runs alone on an SM: the 512-thread instance
+WIDE_MK = ((100, 40), (420, 48), (400, 64))
 
 
 @pytest.fixture
@@ -130,6 +132,54 @@ def test_kernel_is_deterministic(cuda):
     assert torch.equal(S1, S2) and torch.equal(Y1, Y2)
 
 
+def _bits(x):
+    return torch.view_as_real(x).view(torch.int32)
+
+
+@pytest.mark.parametrize("case", ["none", "rank", "reset"])
+@pytest.mark.parametrize("mk", WIDE_MK)
+def test_wide_instance_matches_plain(cuda, mk, case):
+    """The 512-thread instance (64-column tiles) at the sweep shapes where
+    one block fits an SM: S and Y within 2e-4 of their largest entry of the
+    plain version's, without and with the support schedule, and with a
+    realization whose W is never finite (an infinite entry of subY): the
+    kernel zeroes that W every iteration as the plain version does, so its Y
+    is zero, and the other realizations agree.  One launch, counted as
+    wide, its ``launch`` span's ``threads`` 512; a second launch is
+    bit-equal."""
+    b, (m, k) = 4, mk
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+
+    def c(*s):
+        return torch.randn(*s, generator=g, device=cuda, dtype=torch.complex64)
+
+    Omega = (torch.rand(b, N, m, generator=g, device=cuda) < 0.5).float()
+    subY = c(b, N, m) * Omega
+    A, B = c(b, N, Gr) / N**0.5, c(b, k, m) / k**0.5
+    args = (subY, Omega, A, B, *admm_hyperparams(subY, c(b, Gr, k)))
+    rank = None
+    if case == "rank":
+        rng = np.random.default_rng(m)
+        rank = torch.from_numpy(np.stack([rng.permutation(Gr * k).reshape(Gr, k) for _ in range(b)]).astype(np.int32))
+        rank = rank.to(cuda)
+    if case == "reset":
+        subY[0, 3, 5] = float("inf")
+    assert admm_fused.plan(N, m, Gr, k).threads == admm_fused.WIDE_THREADS
+    before = (fused_tracked_admm.launches, fused_tracked_admm.wide_launches)
+    with trace.recording() as spans:
+        S, Y = fused_tracked_admm(*args, Imax=IMAX, support_rank=rank)
+    assert (fused_tracked_admm.launches, fused_tracked_admm.wide_launches) == (before[0] + 1, before[1] + 1)
+    assert [s.attrs["threads"] for s in spans if s.name == "launch"] == [admm_fused.WIDE_THREADS]
+    S2, Y2 = fused_tracked_admm(*args, Imax=IMAX, support_rank=rank)
+    assert torch.equal(_bits(S), _bits(S2)) and torch.equal(_bits(Y), _bits(Y2))
+    S_ref, Y_ref = fused_tracked_admm_plain(*args, Imax=IMAX, support_rank=rank)
+    kept = slice(1 if case == "reset" else 0, None)
+    if case == "reset":
+        assert not Y[0].abs().any() and not Y_ref[0].abs().any()
+    assert float((S[kept] - S_ref[kept]).abs().max()) <= 2e-4 * float(S_ref[kept].abs().max())
+    assert float((Y[kept] - Y_ref[kept]).abs().max()) <= 2e-4 * float(Y_ref[kept].abs().max())
+
+
 @pytest.mark.parametrize("batch", [1, 133])
 def test_kernel_at_one_block_and_over_a_wave(cuda, batch):
     """One realization, and 133 (one block more than the card's 132 SMs):
@@ -155,25 +205,29 @@ def test_kernel_at_one_block_and_over_a_wave(cuda, batch):
 
 
 def test_plan_matches_the_kernel_layout(cuda):
-    """The plan's shared-memory bytes are the kernel's own Layout; each
-    kernel instance's registers leave room for the blocks its plan puts on
-    an SM, and the card holds them; errorVSnrf's transposed shape runs an
-    instance of its own, three blocks an SM."""
+    """The plan's shared-memory bytes are the kernel's own Layout, at the
+    plan's threads; each kernel instance's registers leave room for the
+    blocks its plan puts on an SM, and the card holds them; the sweep
+    shapes whose block runs alone on an SM run the 512-thread instance, and
+    errorVSnrf's transposed shape an instance of its own, three blocks an
+    SM."""
     for m, k in SWEEP_MK:
-        assert admm_fused.smem_bytes(N, Gr, k) == 4 * admm_fused._layout_floats(N, Gr, k)
+        threads = admm_fused.plan(N, m, Gr, k).threads
+        assert admm_fused.smem_bytes(N, Gr, k) == 4 * admm_fused._layout_floats(N, Gr, k, threads)
     for n, gr, k in ((40, 36, 12), (66, 32, 16), (20, 16, 32)):
         assert admm_fused.smem_bytes(n, gr, k) == 4 * admm_fused._layout_floats(n, gr, k)
     shapes = {  # (N, M, Gr, K): the instance that runs it
-        (32, 140, 32, 16): "fused_admm_kernel<32, 32, 1, 0, 2>",
-        (66, 200, 32, 16): "fused_admm_kernel<0, 0, 0, 0, 2>",
-        (20, 32, 16, 32): "fused_admm_kernel<20, 16, 1, 32, 3>",
+        (32, 140, 32, 16): "fused_admm_kernel<32, 32, 1, 0, 2, 256>",
+        **{(32, m, 32, k): "fused_admm_kernel<32, 32, 1, 0, 1, 512>" for m, k in WIDE_MK},
+        (66, 200, 32, 16): "fused_admm_kernel<0, 0, 0, 0, 2, 256>",
+        (20, 32, 16, 32): "fused_admm_kernel<20, 16, 1, 32, 3, 256>",
     }
     for (n, m, gr, k), name in shapes.items():
         assert admm_fused.instance(n, gr, k) == name
         pl = admm_fused.plan(n, m, gr, k)
-        regs = admm_fused._library().fused_tracked_admm_registers(n, gr, k)
+        regs = admm_fused._library().fused_tracked_admm_registers(n, gr, k, pl.threads)
         blocks = admm_fused.blocks_per_sm(n, gr, k, pl.smem_bytes)
-        assert 0 < regs and blocks * admm_fused.THREADS * regs <= 65536
+        assert 0 < regs and blocks * pl.threads * regs <= 65536
         assert blocks >= pl.blocks_per_sm
     assert admm_fused.blocks_per_sm(20, 16, 32, admm_fused.smem_bytes(20, 16, 32)) == 3
 

@@ -12,7 +12,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from jstsp19_tpu.kernels.admm_fused import fused_tracked_admm as jfused  # noqa: E402
 from jstsp19_tpu.solvers.admm import admm_hyperparams as jhp  # noqa: E402
-from jstsp19_torch.kernels import admm_fused, build  # noqa: E402
+from jstsp19_torch.kernels import admm_fused, build, launch_counts  # noqa: E402
 from jstsp19_torch.kernels.admm_fused import fused_tracked_admm, fused_tracked_admm_plain  # noqa: E402
 
 Bt, N, M, Gr, K = 2, 32, 140, 32, 16
@@ -23,6 +23,8 @@ IMAX = 25
 # sweep recipes (N = Gr = 32)
 SWEEP_MK = ((140, 16), (40, 32), (120, 32), (200, 32), (280, 32), (40, 16), (60, 24), (80, 32),
             (100, 40), (210, 24), (420, 48), (400, 64))
+# the sweep shapes where two 256-thread blocks do not fit an SM's shared memory
+WIDE_MK = ((100, 40), (420, 48), (400, 64))
 
 
 def _problem(seed, M=M, K=K):
@@ -78,22 +80,45 @@ def test_plain_version_matches_jax_pallas_interpret_at_wide_sweep_shapes(mk, wit
 
 def test_plan_fits_every_sweep_shape():
     """The kernel's plan fits each fused-route sweep shape in one block's
-    shared memory, puts two blocks on an SM at the canonical shape, takes
-    N above 32 (groups of 32 rows) while its buffers fit, and raises with
-    the byte count for operands too large for a block."""
+    shared memory, puts two blocks on an SM at the canonical shape, gives a
+    block 512 threads and 64-column tiles exactly where it runs alone on an
+    SM (two 256-thread blocks do not fit), takes N above 32 (groups of 32
+    rows) while its buffers fit, and raises with the byte count for
+    operands too large for a block."""
     for m, k in SWEEP_MK:
         pl = admm_fused.plan(N, m, Gr, k)
-        assert pl.smem_bytes <= build.SMEM_LIMIT_BYTES and pl.tw == admm_fused.TILE_WIDTH
+        assert pl.smem_bytes <= build.SMEM_LIMIT_BYTES and pl.tw == admm_fused.tile_width(pl.threads)
         assert pl.blocks_per_sm * (pl.smem_bytes + admm_fused.BLOCK_RESERVED_BYTES) <= admm_fused.SM_SMEM_BYTES
-        assert pl.smem_bytes == 4 * admm_fused._layout_floats(N, Gr, k) and pl.row_groups == 1
+        assert pl.smem_bytes == 4 * admm_fused._layout_floats(N, Gr, k, pl.threads) and pl.row_groups == 1
+        wide = (m, k) in WIDE_MK
+        assert pl.threads == (admm_fused.WIDE_THREADS if wide else admm_fused.THREADS)
+        assert (pl.blocks_per_sm == 1) == wide and pl.tw == (64 if wide else 32)
+        two = 2 * (4 * admm_fused._layout_floats(N, Gr, k) + admm_fused.BLOCK_RESERVED_BYTES)
+        assert (two > admm_fused.SM_SMEM_BYTES) == wide
     assert admm_fused.plan(N, M, Gr, K).blocks_per_sm == 2
     assert admm_fused.plan(40, 90, 36, 12).row_groups == 2
     wide = admm_fused.plan(66, 200, 32, 16)
     assert wide.row_groups == 3 and wide.blocks_per_sm == 1 and wide.smem_bytes <= build.SMEM_LIMIT_BYTES
+    assert wide.threads == admm_fused.THREADS  # one block an SM, but no 512-thread instance at N = 66
     with pytest.raises(ValueError, match="B of shared memory"):
         admm_fused.plan(64, 4096, 64, 128)
     with pytest.raises(ValueError, match="B of shared memory"):
         admm_fused.plan(70, 200, 32, 16)
+
+
+@pytest.mark.parametrize("k,threads,nbytes", [
+    (16, 256, 82_432), (48, 256, 146_944), (64, 256, 190_080),
+    (40, 512, 155_392), (48, 512, 175_424), (64, 512, 218_560),
+])
+def test_layout_bytes_follow_the_thread_count(k, threads, nbytes):
+    """The layout's bytes at N = Gr = 32 for a block of 256 threads (32-column
+    tiles) and of 512 (64-column tiles: wider B, W and transposed W tiles, a
+    W tile that also holds K transposed, and a reduction buffer for 16
+    warps); the card's tests hold the library's own count to the same
+    function."""
+    assert 4 * admm_fused._layout_floats(N, Gr, k, threads) == nbytes
+    if threads == admm_fused.WIDE_THREADS:
+        assert admm_fused.plan(N, 8 * k, Gr, k).smem_bytes == nbytes
 
 
 def test_wrapper_dispatch_and_checks():
@@ -101,6 +126,9 @@ def test_wrapper_dispatch_and_checks():
     S, _ = fused_tracked_admm(*args, Imax=3)
     S_p, _ = fused_tracked_admm_plain(*args, Imax=3)
     assert torch.equal(S, S_p)
+    # CPU calls launch nothing: the launch counters, the wide one too, stay at 0
+    assert fused_tracked_admm.launches == fused_tracked_admm.wide_launches == 0
+    assert launch_counts()["fused_tracked_admm"] == launch_counts()["fused_tracked_admm_512"] == 0
     with pytest.raises(ValueError, match="even N"):
         fused_tracked_admm(args[0][:, :31], args[1][:, :31], args[2][:, :31], *args[3:], Imax=3)
     with pytest.raises(ValueError, match="even N"):

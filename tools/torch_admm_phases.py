@@ -8,11 +8,13 @@ of a product for the phases marked "(thread 0)", and sums the cycles per
 phase.  The normal build leaves the define off and has no stamps.
 
 For each case (by default the canonical errorVSsnr problem, 0 dB,
-Imax=100, at B = 1, 132 and 256, and the errorVSnt Nt=12 shape M=420, K=48
-at B=256; or the one point that ``--point`` and ``--batch`` name) it
-prints the kernel's time (best of 5 CUDA-event reps of the normal
-library), then block 0's cycles per iteration in each phase, its share, and
-that share of the kernel's time per iteration.  A point with N > M (say
+Imax=100, at B = 1, 132 and 256, and the errorVSnt Nt=12 and Nt=16 shapes
+M=420, K=48 and M=400, K=64 at B=256; or the one point that ``--point``
+and ``--batch`` name) it prints the kernel's time (best of 5 CUDA-event
+reps of the normal library), the instance that runs it and its threads a
+block, then block 0's cycles per iteration in each phase, its share, and
+that share of the kernel's time per iteration.  Every instance with rows
+in registers (256 or 512 threads) stamps the same phases.  A point with N > M (say
 errorVSnrf's, ``--point Mr=16 T=5``) runs on the transposed problem, as
 ``solvers/admm_transposed.py`` hands it to the kernel.
 
@@ -47,6 +49,7 @@ CASES = (  # (label, PointConfig changes, batch)
     ("canonical B=132", {}, 132),
     ("canonical B=256", {}, 256),
     ("errorVSnt Nt=12 (M=420, K=48) B=256", dict(Nt=12, Gt=12, T=35, beamformer="fft"), 256),
+    ("errorVSnt Nt=16 (M=400, K=64) B=256", dict(Nt=16, Gt=16, T=25, beamformer="fft"), 256),
 )
 
 
@@ -110,8 +113,7 @@ def main() -> int:
         total = sum(cycles)
         print(f"\n{label} (N={N}, M={M}, K={K}, Imax={IMAX}): kernel {ms:.3f} ms, best of {REPS} "
               f"({card}); block 0: {total / IMAX:.0f} cycles per iteration; {admm_fused.instance(N, Gr, K)}, "
-              f"{blocks} block(s) an SM, "
-              f"{smem} B shared")
+              f"{plan.threads} threads a block, {blocks} block(s) an SM, {smem} B shared")
         for name, c in zip(names, cycles):
             share = c / total if total else 0.0
             print(f"  {name:32s} {c / IMAX:10.0f} cycles/it  {100 * share:5.1f}%  "
