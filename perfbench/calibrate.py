@@ -7,7 +7,9 @@ products in its place) runs two passes of the cell's sweep at the cell's
 size through the window's own call, and the check compares a sample of them
 as a run does.  It prints each compared number per seed, the program's
 largest (the lower reading) and the control's smallest (the upper), and with
-``--out`` writes them as JSON.  Runs on the card.
+``--out`` writes them as JSON: the numbers of ``check.numbers`` for the
+cell's methods, the conventional branch's among them where the traffic
+holds a baseline.  Runs on the card.
 """
 from __future__ import annotations
 
@@ -59,7 +61,8 @@ def main(argv=None) -> int:
               + ", ".join(f"{k} {v!r}" for k, v in out[side][s].items()) + f" ({time.time() - t0:.1f} s)", flush=True)
     for side, pick in (("program", max), ("control", min)):
         if out[side]:
-            out[side + "_" + pick.__name__] = {k: pick(r[k] for r in out[side].values()) for k in check.NUMBERS}
+            keys = next(iter(out[side].values()))
+            out[side + "_" + pick.__name__] = {k: pick(r[k] for r in out[side].values()) for k in keys}
             print(f"[calibrate] {side} {pick.__name__}: {out[side + '_' + pick.__name__]}", flush=True)
     if args.out:
         with open(args.out, "w") as f:

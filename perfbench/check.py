@@ -32,6 +32,38 @@ that the reference does not compute.
 - ``answers_missing``: answers of the window missing, non-finite or out of
   [0, 1] (exact).
 
+Where the traffic holds a baseline (``ls``, ``vamp``, ``omp_mmv``), the
+conventional receiver's branch is compared too, with numbers of its own
+(:data:`BASELINE_NUMBERS`); a traffic of the proposed pair alone compares
+the six above and nothing else:
+
+- its front end, ``pipeline.conventional_problem``'s against the
+  reference's, ``conv_frontend_rel_err`` (Y_c, A_c, B_c and Zbar, each as
+  max|difference| over max|reference|, the largest);
+- the estimates of LS and MMV-OMP on the program's conventional problem
+  against the reference's on the same, ``baseline_s_rel_err`` (per
+  realization, the largest);
+- VAMP's estimate there, ``vamp_s_min_rel_err``: the point's smallest
+  per-realization gap.  At the script's noise variance 1 VAMP does not
+  settle on most realizations: from about its 25th iteration float32
+  rounding decides its path, and keep-best picks among those iterates, so
+  the program's and the reference's estimates (or the reference's own in
+  float32 and float64) part by up to the estimate's size on most
+  realizations whatever either does; on the realizations where the iteration
+  settles first they agree to float32 rounding, and the smallest gap is
+  theirs;
+- VAMP over every realization, ``vamp_mean_nmse_gap``: the mean of the
+  point's VAMP answers of the window against the mean of the reference's
+  NMSE of the reference's estimate (the curve's value at the point), the
+  absolute difference.  Rounding's paths average out over the point, so a
+  VAMP that is wrong on some realizations alone (half of the batch left at
+  its start) shows here, where the smallest gap holds only the easiest;
+- the answers, ``baseline_nmse_gap``: each LS and MMV-OMP answer of the
+  window against the reference's NMSE of the reference's estimate, each
+  VAMP answer against the reference's NMSE of the program's own estimate
+  (the NMSE, its clamp and its copy to the host), the largest absolute
+  difference.
+
 The solve is compared on the program's front end, and the front end by
 itself, because the oracle order is not continuous in Zbar: where two
 entries of |Zbar| lie within rounding of each other, the program's and the
@@ -55,6 +87,16 @@ EXTRA_POINTS = 2
 UNREADABLE = 1e300  # what a number reads where its comparison gave no finite value (the result line is JSON)
 FRONTEND_KEYS = ("Zbar", "subY", "A", "B", "tau_Y", "tau_S", "rho")
 NUMBERS = ("frontend_rel_err", "omega_mismatch", "rank_mismatch", "s_rel_err", "nmse_gap", "answers_missing")
+CONVENTIONAL_KEYS = ("Y_c", "A_c", "B_c", "Zbar")
+BASELINE_NUMBERS = ("conv_frontend_rel_err", "baseline_s_rel_err", "vamp_s_min_rel_err", "vamp_mean_nmse_gap",
+                    "baseline_nmse_gap")
+
+
+def numbers(methods) -> Tuple[str, ...]:
+    """The numbers compared for a traffic of ``methods``: :data:`NUMBERS`,
+    and :data:`BASELINE_NUMBERS` after them where a baseline is among the
+    methods."""
+    return NUMBERS + BASELINE_NUMBERS if set(methods) & set(reference.BASELINES) else NUMBERS
 
 
 def follows(system, points: Sequence[Point], route: str) -> None:
@@ -111,7 +153,7 @@ def compare_point(system, pt: Point, answers: Dict[str, np.ndarray]) -> Dict[str
                rank_mismatch=float((prob["rank"] != reference.oracle_rank(prob["Zbar"])).sum()),
                s_rel_err=0.0, nmse_gap=0.0)
     del ref_prob
-    for m in pt.methods:
+    for m in (m for m in pt.methods if m not in reference.BASELINES):
         S = system.solve(pt, prob, m)
         S_ref = reference.solve(prob, pt.params, m)
         scale = S_ref.abs().amax(dim=(-2, -1))
@@ -123,13 +165,47 @@ def compare_point(system, pt: Point, answers: Dict[str, np.ndarray]) -> Dict[str
         else:
             out["nmse_gap"] = max(out["nmse_gap"], float(np.abs(got - nmse_ref).max()))
         del S, S_ref
+    if set(pt.methods) & set(reference.BASELINES):
+        del prob
+        out.update(compare_conventional(system, pt, answers))
+    return out
+
+
+def compare_conventional(system, pt: Point, answers: Dict[str, np.ndarray]) -> Dict[str, float]:
+    """The compared numbers of one point's conventional branch
+    (:data:`BASELINE_NUMBERS`)."""
+    ref_prob = reference.conventional_problem(pt.params, pt.noise_var, pt.n_mc, system.seed, pt.k, system.device)
+    prob = system.conventional_problem(pt)
+    out = dict.fromkeys(BASELINE_NUMBERS, 0.0)
+    out["conv_frontend_rel_err"] = max(_rel(prob[key], ref_prob[key]) for key in CONVENTIONAL_KEYS)
+    del ref_prob
+    for m in (m for m in pt.methods if m in reference.BASELINES):
+        S = system.solve(pt, prob, m)
+        S_ref = reference.solve(prob, pt.params, m)
+        gap = (S - S_ref).abs().amax(dim=(-2, -1)) / S_ref.abs().amax(dim=(-2, -1))
+        got = np.asarray(answers.get(m, np.empty(0)), dtype=np.float64).reshape(-1)
+        if m == "vamp":
+            out["vamp_s_min_rel_err"] = float(gap.min())
+            mean_ref = float(reference.clamped_nmse(S_ref, prob["Zbar"]).double().mean())
+            out["vamp_mean_nmse_gap"] = abs(float(got.mean()) - mean_ref) if got.size == pt.n_mc else UNREADABLE
+            judged = S
+        else:
+            out["baseline_s_rel_err"] = max(out["baseline_s_rel_err"], float(gap.max()))
+            judged = S_ref
+        nmse_ref = reference.clamped_nmse(judged, prob["Zbar"]).cpu().numpy()
+        if got.shape != nmse_ref.shape:
+            out["baseline_nmse_gap"] = UNREADABLE
+        else:
+            out["baseline_nmse_gap"] = max(out["baseline_nmse_gap"], float(np.abs(got - nmse_ref).max()))
+        del S, S_ref
     return out
 
 
 def run(system, done: Sequence[Tuple[Point, Dict[str, np.ndarray]]], seed: int,
         limits: Dict[str, float]) -> Tuple[bool, Dict[str, Dict[str, float]]]:
     """(correct, {number: {"value", "limit"}}) over the window's points ``done``."""
-    values = dict.fromkeys(NUMBERS, 0.0)
+    keys = numbers({m for pt, _ in done for m in pt.methods})
+    values = dict.fromkeys(keys, 0.0)
     values["answers_missing"] = float(sum(answer_faults(pt, ans)[0] for pt, ans in done))
     answers = {pt.k: ans for pt, ans in done}
     for pt in sample([pt for pt, _ in done], seed):
@@ -139,6 +215,6 @@ def run(system, done: Sequence[Tuple[Point, Dict[str, np.ndarray]]], seed: int,
         gc.collect()
         if system.device.type == "cuda":
             torch.cuda.empty_cache()
-    checks = {key: {"value": values[key], "limit": float(limits[key])} for key in NUMBERS}
+    checks = {key: {"value": values[key], "limit": float(limits[key])} for key in keys}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
     return correct, checks

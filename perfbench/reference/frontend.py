@@ -116,13 +116,13 @@ def combiner(kind: str, n: int, device) -> torch.Tensor:
     return torch.exp(-1j * rows * omega[None, :]) / math.sqrt(n)
 
 
-def frontend(point: Mapping, d: Mapping[str, torch.Tensor], mm: Products) -> Dict[str, torch.Tensor]:
-    """The solver's problem and the true beamspace channel from the raw draws:
-    Zbar (B, Gr, L·Gt), subY and Omega (B, Mr_e, T·Nt), A (B, Mr_e, Gr),
-    B (B, L·Gt, T·Nt), tau_Y, tau_S, rho (B,) and the oracle rank of each
-    entry of Zbar (B, Gr, L·Gt), int32."""
+def received(point: Mapping, d: Mapping[str, torch.Tensor], mm: Products) -> Dict[str, torch.Tensor]:
+    """What both receivers share, from the raw draws: the true beamspace
+    channel Zbar (B, Gr, L·Gt), the training Psi (B, L, Nt, T), the received
+    frame R = Σ_l H_l·Psi_l + noise (B, Nr, T) before any combiner, T the
+    proposed receiver's training length, and the dictionaries Dr (Nr, Gr)
+    and Dt (Nt, Gt)."""
     L, Nr, Nt, Gr, Gt = point["L"], point["Nr"], point["Nt"], point["Gr"], point["Gt"]
-    Mr_e, Mr = point["Mr_e"], point["Mr"]
     Np = point["n_clusters"] * point["n_rays"]
     dev = d["gains"].device
     batch = d["gains"].shape[1]
@@ -145,9 +145,25 @@ def frontend(point: Mapping, d: Mapping[str, torch.Tensor], mm: Products) -> Dic
     rows = torch.where(lag >= 0, rows, rows.conj())
     Psi = rows.transpose(1, 2)  # (B, L, Nt, T)
 
-    # received frame R = Σ_l H_l·Psi_l + noise, then the wide combiner and the mask
+    # received frame R = Σ_l H_l·Psi_l + noise
     noise = torch.complex(d["noise"][0], d["noise"][1]) * torch.sqrt(d["noise_var"] / 2)
     R = mm(H.permute(0, 2, 1, 3).reshape(batch, Nr, L * Nt), Psi.reshape(batch, L * Nt, T)) + noise
+    return dict(Zbar=Zbar, Psi=Psi, R=R, Dr=Dr, Dt=Dt)
+
+
+def frontend(point: Mapping, d: Mapping[str, torch.Tensor], mm: Products) -> Dict[str, torch.Tensor]:
+    """The solver's problem and the true beamspace channel from the raw draws:
+    Zbar (B, Gr, L·Gt), subY and Omega (B, Mr_e, T·Nt), A (B, Mr_e, Gr),
+    B (B, L·Gt, T·Nt), tau_Y, tau_S, rho (B,) and the oracle rank of each
+    entry of Zbar (B, Gr, L·Gt), int32."""
+    L, Nr, Gr, Gt = point["L"], point["Nr"], point["Gr"], point["Gt"]
+    Mr_e, Mr = point["Mr_e"], point["Mr"]
+    rx = received(point, d, mm)
+    Zbar, Psi, R, Dr, Dt = rx["Zbar"], rx["Psi"], rx["R"], rx["Dr"], rx["Dt"]
+    dev = R.device
+    batch, _, T = R.shape
+
+    # the wide combiner and the mask
     W_e = combiner(point["beamformer"], Nr, dev)[:, :Mr_e]
     Y_full = mm(W_e.mH, R)  # (B, Mr_e, T)
     order = torch.argsort(d["scores"], dim=-1, stable=True)

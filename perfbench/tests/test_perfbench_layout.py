@@ -59,7 +59,7 @@ def test_every_cell_resolves_to_its_files(workload):
     cell = cells.load(workload)
     assert cell.config["point"] and cell.config["sweep"]
     assert cell.traffic["n_mc"] > 0 and cell.traffic["methods"]
-    assert set(cell.limits) == set(check.NUMBERS)
+    assert set(cell.limits) == set(check.numbers(cell.traffic["methods"]))
     for m in cell.end_to_end + cell.per_layer:
         assert callable(cells.reader(m["name"]))
     assert {m["name"] for m in cell.end_to_end} >= {"setup_s"} and len(cell.end_to_end) >= 2

@@ -88,7 +88,7 @@ def test_a_traced_run_of_the_cut_cell_on_the_card(tiny_nrf_cell):
         pytest.skip("needs a CUDA device")
     result = run(tiny_nrf_cell, Port, "cuda", traced=True)
     assert result["correct"], result["checks"]
-    assert set(result["metrics"]) == {"tracked_frontend_ms", "tracked_admm_roofline"}
+    assert set(result["metrics"]) == {"tracked_frontend_ms", "tracked_admm_roofline", "device_idle_pct"}
     assert 0 < result["metrics"]["tracked_admm_roofline"]["value"] <= 100
     assert 0 < result["device"]["busy_s"] <= result["device"]["window_s"]
     assert not run(tiny_nrf_cell, Control, "cuda")["correct"]

@@ -162,7 +162,8 @@ def test_a_fault_on_the_tracked_route_makes_the_run_not_correct(tiny_tracked_cel
     assert not result["correct"], result["checks"]
 
 
-@pytest.mark.parametrize("change", [{"methods": ["proposed", "vamp"]}, {"svt_method": "eigh"}])
+@pytest.mark.parametrize("change", [{"methods": ["proposed", "omp_td"]}, {"methods": ["proposed", "svt"]},
+                                    {"methods": ["proposed", "tssr"]}, {"svt_method": "eigh"}])
 def test_a_cell_the_reference_cannot_check_is_refused_before_any_point_runs(tiny_tracked_cell, monkeypatch,
                                                                             change):
     ran = []

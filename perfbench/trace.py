@@ -16,10 +16,17 @@ and restores them on exit:
   (B, N, M, Gr, K, Imax and whether it takes the oracle support ``rank``):
   ``kernels.admm_fused.fused_tracked_admm``, named ``fused_admm``, and on
   the tracked route ``harness.pipeline.proposed_admm`` and
-  ``proposed_admm_angles``, named ``tracked_admm``.
+  ``proposed_admm_angles``, named ``tracked_admm``.  A timed call made
+  inside another (the tracked solve's launch of the fused kernel on the
+  transpose) is the outer span's;
+- the baselines' solves, two CUDA events around each call and its batch B:
+  ``harness.pipeline.ls_estimate``, ``vamp_mmwave`` and ``omp_mmv``, each
+  named after its function; their branch's draws (``point_draws`` in
+  ``realization_errors``) are a ``draws`` span on either route.
 
 On a fused point the tracked route's three record nothing, and on a
-tracked point the fused route's two are not called.
+tracked point the fused route's two are not called; a point of the
+proposed pair alone calls none of the baselines'.
 
 :func:`device_stretch` runs a stretch of points under ``torch.profiler`` and
 reduces its trace to the union of the device's kernel, copy and set
@@ -62,6 +69,7 @@ def spans(out: List[Span]):
 
     pending: List[Tuple[str, torch.cuda.Event, torch.cuda.Event, Dict[str, object]]] = []
     depth = [0]  # host spans open: a call inside another host span's call is the outer one's
+    timing = [0]  # timed spans open, the same for them
 
     def host(name, fn):
         @functools.wraps(fn)
@@ -80,25 +88,39 @@ def spans(out: List[Span]):
             return result
         return wrapper
 
-    def timed(name, fn, ranked):
-        """CUDA events around each call of the solve ``fn``; ``ranked(args)``:
-        whether the call takes the oracle support."""
+    def timed(name, fn, shapes):
+        """CUDA events around each call of ``fn``; ``shapes(args)``: the
+        call's attributes, from its arguments by name."""
         signature = inspect.signature(fn)
 
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
+            if timing[0]:
+                return fn(*args, **kwargs)
             bound = signature.bind(*args, **kwargs)
             bound.apply_defaults()
-            a = bound.arguments
-            Bt, N, M = a["subY"].shape
-            attrs = dict(B=Bt, N=N, M=M, Gr=a["A"].shape[-1], K=a["B"].shape[-2], Imax=a["Imax"], rank=ranked(a))
+            attrs = shapes(bound.arguments)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            result = fn(*args, **kwargs)
+            timing[0] += 1
+            try:
+                result = fn(*args, **kwargs)
+            finally:
+                timing[0] -= 1
             end.record()
             pending.append((name, start, end, attrs))
             return result
         return wrapper
+
+    def solve(ranked):
+        """The solve's shapes; ``ranked(args)``: whether it takes the oracle support."""
+        def shapes(a):
+            Bt, N, M = a["subY"].shape
+            return dict(B=Bt, N=N, M=M, Gr=a["A"].shape[-1], K=a["B"].shape[-2], Imax=a["Imax"], rank=ranked(a))
+        return shapes
+
+    def batch(arg):
+        return lambda a: dict(B=a[arg].shape[0])
 
     def given(a):
         return a["support_rank"] is not None
@@ -107,9 +129,13 @@ def spans(out: List[Span]):
         (pipeline, "proposed_problem"): host("frontend", pipeline.proposed_problem),
         (pipeline, "point_draws"): host("draws", pipeline.point_draws),
         (pipeline, "_proposed_frontend"): host("frontend", pipeline._proposed_frontend),
-        (admm_fused, "fused_tracked_admm"): timed("fused_admm", admm_fused.fused_tracked_admm, given),
-        (pipeline, "proposed_admm"): timed("tracked_admm", pipeline.proposed_admm, given),
-        (pipeline, "proposed_admm_angles"): timed("tracked_admm", pipeline.proposed_admm_angles, lambda a: True),
+        (admm_fused, "fused_tracked_admm"): timed("fused_admm", admm_fused.fused_tracked_admm, solve(given)),
+        (pipeline, "proposed_admm"): timed("tracked_admm", pipeline.proposed_admm, solve(given)),
+        (pipeline, "proposed_admm_angles"): timed("tracked_admm", pipeline.proposed_admm_angles,
+                                                  solve(lambda a: True)),
+        (pipeline, "ls_estimate"): timed("ls_estimate", pipeline.ls_estimate, batch("Y")),
+        (pipeline, "vamp_mmwave"): timed("vamp_mmwave", pipeline.vamp_mmwave, batch("Y_hbf")),
+        (pipeline, "omp_mmv"): timed("omp_mmv", pipeline.omp_mmv, batch("A")),
     }
     for (module, name), wrapper in wrappers.items():
         setattr(module, name, wrapper)
